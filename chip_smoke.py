@@ -20,14 +20,28 @@ Phases:
    full width for one 8192-token session plus a 256 MiB heap: 8 agent turns,
    a checkpoint after each, a fast rollback and a slow (image) restore, all
    restored bytes checked against device copies;
+3b. serving kernels — ``page_copy_stacked`` and ``page_copy`` bit-exact
+   against their plain versions at the served qwen3-14b pool and at the edge
+   sweeps, ``paged_attention`` within 2e-5 (fp32) / 2e-2 (bf16) at the served
+   decode shape, the sweep cases and the length edges (0 gives exactly 0),
+   then timed like phase 3;
+6. serving path — ``Engine`` over the whole ``qwen3-14b`` config (random bf16
+   weights from a seed, 40 layers) and a 1024-page pool: prefill of a
+   2011-token prompt, decode, a delta checkpoint, four fast forks decoding
+   16 batched steps, a slow restore that must decode exactly what a fast
+   fork decodes; CoW block accounting and the delta image's dirty rows
+   checked, launches counted over this phase alone;
 5. report — one JSON line per kernel, the ``{"kernels": [...]}`` line, the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+
+Phases run in the order 1, 2, 3, 3b, 4, 6, 5.
 
 Any failure exits non-zero before the last line is printed.  The script
 imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -303,6 +317,501 @@ def time_kernels(device) -> dict:
             "bound_ms": bound_ms(2 * n_valid * C + 4 * M),
         }
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the serving kernels against their plain versions
+# ---------------------------------------------------------------------------
+# paged_attention cases of the JAX package's tests/test_kernels.py:19-28
+# (B, KVH, G, D, page_size, P, max_pages, dtype name)
+PA_CASES = [
+    (1, 1, 1, 128, 16, 8, 2, "float32"),
+    (2, 2, 4, 128, 64, 16, 4, "float32"),
+    (3, 4, 2, 128, 32, 12, 3, "float32"),
+    (2, 1, 8, 256, 16, 8, 4, "float32"),
+    (2, 2, 5, 128, 16, 8, 3, "float32"),
+    (2, 2, 4, 64, 16, 8, 3, "float32"),
+    (2, 2, 4, 128, 64, 16, 4, "bfloat16"),
+]
+PA_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the served shape: 4 forks of one qwen3-14b session, ~2040 tokens each
+SERVED_B, SERVED_PSZ, SERVED_PAGES, SERVED_MAXP = 4, 16, 1024, 256
+SERVED_LENS = [2035, 2040, 2047, 2050]
+SERVED_SHARED_PAGES = 127              # pages the forks share (the trunk's)
+COPY_PAIRS = 4                         # CoW copies of one batched materialize
+
+
+def _attention_inputs(gen, B, KVH, G, D, psz, P, maxp, dtype, device, lens=None, shared=0):
+    """q, pages, a page table and lengths.  With ``shared``, the B sessions
+    share their first ``shared`` pages and own the rest (forks of one
+    trunk); otherwise the table is random."""
+    import torch
+
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, KVH, G, D), generator=gen, device=device).to(dt)
+    k = torch.randn((P, psz, KVH, D), generator=gen, device=device).to(dt)
+    v = torch.randn((P, psz, KVH, D), generator=gen, device=device).to(dt)
+    if shared:
+        perm = torch.randperm(P - 1, generator=gen, device=device) + 1
+        table = torch.empty((B, maxp), dtype=torch.int32, device=device)
+        table[:, :shared] = perm[:shared].to(torch.int32)
+        own = perm[shared:].to(torch.int32)
+        for b in range(B):
+            table[b, shared:] = own[b * (maxp - shared) : (b + 1) * (maxp - shared)]
+    else:
+        table = torch.randint(0, P, (B, maxp), generator=gen, device=device, dtype=torch.int32)
+    if lens is None:
+        lens = torch.randint(1, maxp * psz + 1, (B,), generator=gen, device=device,
+                             dtype=torch.int32)
+    else:
+        lens = torch.tensor(lens, dtype=torch.int32, device=device)
+    return q, k, v, table, lens
+
+
+def _attention_err(got, want, tol: float) -> float:
+    """Largest |got - want|; fails past ``tol`` absolute + relative."""
+    g, w = got.double(), want.double()
+    if g.shape != w.shape or got.dtype != want.dtype:
+        raise AssertionError(f"shape/dtype {tuple(got.shape)} {got.dtype} vs "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if not bool(((g - w).abs() <= tol + tol * w.abs()).all()):
+        raise AssertionError(f"paged_attention differs by {float((g - w).abs().max())} > {tol}")
+    return float((g - w).abs().max()) if g.numel() else 0.0
+
+
+def check_serving_kernels(device) -> dict:
+    """page_copy / page_copy_stacked bit-exact (the whole pool compared, so
+    pages outside dst are shown untouched) and paged_attention within its
+    tolerance, at the served shapes and the edge sweeps.  Returns the
+    largest error per kernel."""
+    import torch
+
+    from repro_torch.kernels import page_copy, page_copy_stacked, paged_attention, ref
+
+    gen = torch.Generator(device=device).manual_seed(4321)
+    errs = {"page_copy": 0.0, "page_copy_stacked": 0.0, "paged_attention": 0.0}
+
+    def copy_case(shape, n, dtype, stacked):
+        pool = torch.randint(-1000, 1000, shape, generator=gen, device=device).to(dtype)
+        P = shape[1] if stacked else shape[0]
+        perm = torch.randperm(P, generator=gen, device=device).tolist()
+        src, dst = perm[:n], perm[n : 2 * n]
+        s, d = torch.tensor(src, device=device), torch.tensor(dst, device=device)
+        if stacked:
+            want = ref.page_copy_stacked_ref(pool, s, d)
+            got = page_copy_stacked(pool, src, dst)
+        else:
+            want = ref.page_copy_ref(pool, s, d)
+            got = page_copy(pool, src, dst)
+        key = "page_copy_stacked" if stacked else "page_copy"
+        errs[key] = max(errs[key], max_abs_err(got, want))
+
+    def attention_case(*args, lens=None, shared=0):
+        q, k, v, table, seq = _attention_inputs(gen, *args, device, lens=lens, shared=shared)
+        got = paged_attention(q, k, v, table, seq)
+        want = ref.paged_attention_ref(q, k, v, table, seq)
+        errs["paged_attention"] = max(
+            errs["paged_attention"], _attention_err(got, want, PA_TOL[args[-1]])
+        )
+        return got, seq
+
+    kv = (QWEN3_14B_KV_HEADS, QWEN3_14B_HEAD_DIM)
+    # served shapes: the stacked qwen3-14b pool, n = 4 pairs; one period alone
+    copy_case((QWEN3_14B_LAYERS, SERVED_PAGES, SERVED_PSZ, *kv), COPY_PAIRS, torch.bfloat16, True)
+    copy_case((SERVED_PAGES, SERVED_PSZ, *kv), COPY_PAIRS, torch.bfloat16, False)
+    # edge sweeps of the JAX package's tests/test_kernels.py:61-71, and n = 1
+    for P, psz, KVH, D in [(8, 16, 2, 128), (12, 64, 1, 256), (6, 16, 4, 64)]:
+        for dtype in (torch.float32, torch.bfloat16, torch.int32):
+            for n in (P // 2 - 1, 1):
+                copy_case((P, psz, KVH, D), n, dtype, False)
+                copy_case((3, P, psz, KVH, D), n, dtype, True)
+    attention_case(SERVED_B, *kv[:1], 5, kv[1], SERVED_PSZ, SERVED_PAGES, SERVED_MAXP,
+                   "bfloat16", lens=SERVED_LENS, shared=SERVED_SHARED_PAGES)
+    for case in PA_CASES:
+        attention_case(*case)
+    for lens in ([16, 1], [48, 15]):                  # page boundary, whole table, length 1
+        attention_case(2, 1, 2, 128, 16, 6, 3, "float32", lens=lens)
+    got, _ = attention_case(2, 2, 5, 128, 16, 8, 3, "float32", lens=[0, 17])
+    if got[0].abs().max().item() != 0.0:
+        raise AssertionError("paged_attention: seq_len == 0 must give exactly 0")
+    torch.cuda.synchronize()
+    return errs
+
+
+def time_serving_kernels(device) -> dict:
+    """kernel / plain / library times of the serving kernels at the served
+    shapes, with the bytes each must move."""
+    import torch
+
+    from repro_torch.kernels import paged_attention, ref
+    from repro_torch.kernels.page_copy import launch_kernel
+
+    gen = torch.Generator(device=device).manual_seed(77)
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=device)
+    out = {}
+    kv = (QWEN3_14B_KV_HEADS, QWEN3_14B_HEAD_DIM)
+
+    for key, shape in (
+        ("page_copy_stacked", (QWEN3_14B_LAYERS, SERVED_PAGES, SERVED_PSZ, *kv)),
+        ("page_copy", (SERVED_PAGES, SERVED_PSZ, *kv)),
+    ):
+        pool = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+        stacked = pool if key == "page_copy_stacked" else pool[None]
+        P = stacked.shape[1]
+        perm = torch.randperm(P - 1, generator=gen, device=device) + 1
+        s = perm[:COPY_PAIRS].to(torch.int32)
+        d = perm[COPY_PAIRS : 2 * COPY_PAIRS].to(torch.int32)
+        sl, dl = s.long(), d.long()
+        plain = ref.page_copy_stacked_ref if key == "page_copy_stacked" else ref.page_copy_ref
+        if key == "page_copy_stacked":
+            library = lambda: stacked.__setitem__((slice(None), dl), stacked[:, sl])  # noqa: E731
+        else:
+            library = lambda: pool.__setitem__(dl, pool[sl])  # noqa: E731
+        cold, warm = time_graph_ms(lambda: launch_kernel(stacked, s, d), flush=flush)
+        page_bytes = stacked[0, 0].numel() * stacked.element_size()
+        out[key] = {
+            "shape": list(shape) + [COPY_PAIRS],
+            "kernel_ms": cold,
+            "kernel_warm_ms": warm,
+            "plain_ms": time_ms(lambda: plain(pool, s, d), flush=flush),
+            "library_ms": time_graph_ms(library, flush=flush)[0],
+            # each source page read once, each destination page written once
+            "bound_ms": bound_ms(2 * COPY_PAIRS * stacked.shape[0] * page_bytes
+                                 + 2 * COPY_PAIRS * 4),
+        }
+        del pool, stacked
+
+    q, k, v, table, lens = _attention_inputs(
+        gen, SERVED_B, kv[0], 5, kv[1], SERVED_PSZ, SERVED_PAGES, SERVED_MAXP, "bfloat16",
+        device, lens=SERVED_LENS, shared=SERVED_SHARED_PAGES,
+    )
+    cold, warm = time_graph_ms(lambda: paged_attention(q, k, v, table, lens), flush=flush)
+    # bytes this call needs: every session's active K and V rows (forks'
+    # shared pages counted once per session, no dedup), q, out, the active
+    # table entries and the lengths
+    tokens = sum(SERVED_LENS)
+    row = kv[0] * kv[1] * 2
+    active_pages = sum(-(-n // SERVED_PSZ) for n in SERVED_LENS)
+    out["paged_attention"] = {
+        "shape": [SERVED_B, kv[0], 5, kv[1], SERVED_PSZ, SERVED_PAGES, SERVED_MAXP],
+        "kernel_ms": cold,
+        "kernel_warm_ms": warm,
+        "plain_ms": time_ms(lambda: ref.paged_attention_ref(q, k, v, table, lens), flush=flush),
+        "library_ms": None,
+        "library_note": "no single PyTorch call reads K/V through a page table",
+        "bound_ms": bound_ms(2 * tokens * row + 2 * q.numel() * 2 + 4 * active_pages
+                             + 4 * SERVED_B),
+    }
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the serving path at full qwen3-14b size
+# ---------------------------------------------------------------------------
+# the JAX package's src/repro/configs/qwen3_14b.py, whole: 40 layers, d_model
+# 5120, 40 heads over 8 KV heads, head_dim 128, d_ff 17408, vocab 151936, bf16
+SERVE_CONFIG = "qwen3-14b"
+SERVE_PAGES = 1024              # 2.5 GiB of K/V pool at this width
+SERVE_PAGE_SIZE = 16
+SERVE_MAX_PAGES = 256
+SERVE_PROMPT = 2011
+SERVE_C1_STEPS = 8              # c1 at seq_len 2019: 127 pages, tail page part-full
+SERVE_C2_STEPS = 16             # c2 at seq_len 2035: 128 pages
+SERVE_FORKS = 4
+SERVE_FORK_STEPS = 16
+SERVE_SLOW_STEPS = 4
+
+
+def run_serving_path(
+    device,
+    *,
+    config: str = SERVE_CONFIG,
+    num_pages: int = SERVE_PAGES,
+    page_size: int = SERVE_PAGE_SIZE,
+    max_pages: int = SERVE_MAX_PAGES,
+    prompt_len: int = SERVE_PROMPT,
+    c1_steps: int = SERVE_C1_STEPS,
+    c2_steps: int = SERVE_C2_STEPS,
+    forks: int = SERVE_FORKS,
+    fork_steps: int = SERVE_FORK_STEPS,
+    slow_steps: int = SERVE_SLOW_STEPS,
+    seed: int = 0,
+) -> dict:
+    """Prefill, decode, checkpoint, fork, delta dump and fast and slow
+    restore of a paged session through ``Engine`` under
+    ``StateManager(Sandbox(DeltaFS, trunk), DeltaCR)``; asserts the CoW
+    block accounting, the dirty page rows of the delta image, and that a
+    slow restore decodes exactly what a fast fork decodes.  Returns the
+    metrics."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import DeltaCR, DeltaFS, DumpPolicy, Sandbox, StateManager
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine, PagePool, PagedSession
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = get_config(config)
+    rng = np.random.default_rng(seed)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=device)
+    model.init(torch.Generator(device=device).manual_seed(seed))
+    pool = PagePool(cfg, num_pages=num_pages, page_size=page_size,
+                    max_pages_per_session=max_pages, device=device)
+    eng = Engine(model, pool)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_layers = cfg.n_layers
+    psz = page_size
+
+    mat_ms = []
+    materialize = pool.materialize
+
+    def timed_materialize(plans, **kw):
+        sync()
+        t = time.perf_counter()
+        n = materialize(plans, **kw)
+        sync()
+        if n:
+            mat_ms.append((time.perf_counter() - t) * 1e3)
+        return n
+
+    pool.materialize = timed_materialize
+
+    def steps(sessions, n):
+        """n batched steps; per-step ms and the token streams."""
+        ms, streams = [], [[] for _ in sessions]
+        for _ in range(n):
+            sync()
+            t = time.perf_counter()
+            toks = eng.step(sessions)
+            sync()
+            ms.append((time.perf_counter() - t) * 1e3)
+            for i, tok in enumerate(toks):
+                streams[i].append(tok)
+        return ms, streams
+
+    launches0 = dict(launch_counts())
+    steps0 = eng.decode_steps
+    prompt = rng.integers(0, cfg.vocab_size, size=prompt_len).tolist()
+    # -- warm-up, and for information the dense-cache path on the same prompt:
+    #    a dense prefill, then (below) one dense decode step
+    cache = model.init_cache(1, prompt_len + 1)
+    dense0, cache = model.prefill(torch.tensor([prompt], dtype=torch.int32, device=device), cache)
+    # -- 1-2: prefill the trunk, decode to c1
+    sync()
+    t = time.perf_counter()
+    trunk = eng.new_session(prompt)
+    sync()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    first_token = trunk.tokens[-1]
+    dense1, _ = model.decode_step(torch.tensor([first_token], dtype=torch.int32, device=device),
+                                  cache)
+    del cache
+    prefill_diff = float(np.abs(dense0[0].float().cpu().numpy() - trunk.extras["last_logits"]).max())
+    b1_ms, _ = steps([trunk], 1)
+    step1_diff = float(np.abs(dense1[0].float().cpu().numpy() - trunk.extras["last_logits"]).max())
+    ms, _ = steps([trunk], c1_steps - 1)
+    b1_ms += ms
+    s1 = trunk.seq_len
+    if s1 != prompt_len + c1_steps or s1 % psz == 0:
+        raise AssertionError(f"c1 at seq_len {s1}: its tail page must be part-full")
+
+    fs = DeltaFS()
+    cr = DeltaCR(
+        store=fs.store, async_warm=False, policy=DumpPolicy(mode="delta"),
+        restore_fn=lambda p: PagedSession.restore_from_payload(pool, p),
+    )
+    sm = StateManager(Sandbox(fs, trunk), cr)
+    fs.write("task/prompt.txt", np.asarray(prompt, np.int32))
+    c1 = sm.checkpoint()
+    cr.wait_dumps()
+    img1 = cr.dump_future(c1).result()
+
+    # -- 3: 16 more trunk steps; the first CoW-copies the shared tail page
+    st0 = dict(vars(pool.stats))
+    ms, _ = steps([trunk], 1)
+    b1_ms += ms
+    if pool.stats.cow_copies != st0["cow_copies"] + 1:
+        raise AssertionError(f"first trunk step: {pool.stats.cow_copies - st0['cow_copies']} "
+                             "CoW copies, expected 1 (the shared tail page)")
+    ms, _ = steps([trunk], c2_steps - 1)
+    b1_ms += ms
+    s2 = trunk.seq_len
+    want_fresh = (s2 - 1) // psz - (s1 - 1) // psz
+    if (pool.stats.fresh_allocs - st0["fresh_allocs"] != want_fresh
+            or pool.stats.cow_copies != st0["cow_copies"] + 1):
+        raise AssertionError(f"trunk steps: {vars(pool.stats)} vs {st0}")
+    d2h0 = cr.pipeline.d2h_bytes
+    sync()
+    t = time.perf_counter()
+    c2 = sm.checkpoint()
+    ckpt_call_ms = (time.perf_counter() - t) * 1e3
+    cr.wait_dumps()
+    sync()
+    dump_ms = (time.perf_counter() - t) * 1e3
+    d2h = cr.pipeline.d2h_bytes - d2h0
+    img2 = cr.dump_future(c2).result()
+    if img2.mode != "delta":
+        raise AssertionError(f"c2 image mode {img2.mode}, expected delta")
+    want_rows = list(range((s1 - 1) // psz, (s2 - 1) // psz + 1))
+    kv_keys = [k for k in img2.entries if k.startswith("kv/")]
+    row_bytes = 0
+    for key in kv_keys:
+        new_ids, old_ids = img2.entries[key].chunk_ids, img1.entries[key].chunk_ids
+        rows = [i for i in range(len(new_ids)) if i >= len(old_ids) or new_ids[i] != old_ids[i]]
+        if rows != want_rows:
+            raise AssertionError(f"{key}: dirty page rows {rows}, expected {want_rows}")
+        row_bytes = img2.entries[key].nbytes // len(new_ids)
+    # the unfused plan fetches the dirty row of the first K = n1 rows, the
+    # grown tail rows, and its control copies (idx of the pow2 capacity,
+    # count)
+    K2 = 1 << ((s1 - 1) // psz).bit_length()
+    cap = cr.pipeline._capacity(K2)
+    want_d2h = len(kv_keys) * (len(want_rows) * row_bytes + 4 * cap + 4)
+    if on_card and d2h != want_d2h:
+        raise AssertionError(f"c2 moved {d2h} B device->host, expected {want_d2h}")
+
+    # -- 4: four fast restores of c2, divergent pending tokens, 16 batched steps
+    copied0 = pool.stats.copied_pages
+    fast_ms, kids = [], []
+    for _ in range(forks):
+        sync()
+        t = time.perf_counter()
+        kid, path = cr.restore(c2)
+        fast_ms.append((time.perf_counter() - t) * 1e3)
+        if path != "fast":
+            raise AssertionError(f"restore of c2 took the {path} path")
+        kids.append(kid)
+    if pool.stats.copied_pages != copied0:
+        raise AssertionError("forking copied pages")
+    actions = rng.choice(cfg.vocab_size, size=forks, replace=False).tolist()
+    for kid, a in zip(kids, actions):
+        kid.tokens[-1] = int(a)
+    st0 = dict(vars(pool.stats))
+    pcs0 = launch_counts()["page_copy_stacked"]
+    b4_ms, streams = steps(kids, 1)
+    n_tensors = 2 * len(pool.attn_tags)
+    if (pool.stats.cow_copies - st0["cow_copies"] != forks
+            or pool.stats.materialize_calls - st0["materialize_calls"] != 1
+            or (on_card and launch_counts()["page_copy_stacked"] - pcs0 != n_tensors)):
+        raise AssertionError(f"first fork step: {vars(pool.stats)} vs {st0}")
+    ms, more = steps(kids, fork_steps - 1)
+    b4_ms += ms
+    streams = [a + b for a, b in zip(streams, more)]
+    if len({tuple(s) for s in streams}) != forks:
+        raise AssertionError(f"fork streams did not diverge: {streams}")
+    profile = _profile_step(eng, kids) if on_card else None
+
+    # -- 5: slow restore of c2 against a fast fork taken before the eviction
+    fast = cr.restore(c2)[0]
+    saved = {k: (v.clone() if isinstance(v, torch.Tensor) else np.array(v))
+             for k, v in fast.dump_payload().items()}
+    if not cr.evict_template(c2):
+        raise AssertionError("no template to evict for c2")
+    sync()
+    t = time.perf_counter()
+    slow, path = cr.restore(c2)
+    sync()
+    slow_ms = (time.perf_counter() - t) * 1e3
+    if path != "slow":
+        raise AssertionError(f"restore of c2 after eviction took the {path} path")
+    got = slow.dump_payload()
+    if sorted(got) != sorted(saved):
+        raise AssertionError("slow restore: payload keys differ")
+    for k, want in saved.items():
+        same = (torch.equal(got[k], want) if isinstance(want, torch.Tensor)
+                else np.array_equal(np.asarray(got[k]), want))
+        if not same:
+            raise AssertionError(f"slow restore: {k} differs from c2")
+    outs = {}
+    for name, sess in (("slow", slow), ("fast", fast)):
+        logits = []
+        toks = []
+        for _ in range(slow_steps):
+            toks += eng.step([sess])
+            logits.append(torch.from_numpy(np.array(sess.extras["last_logits"])))
+        outs[name] = (toks, logits)
+    if outs["slow"][0] != outs["fast"][0] or not all(
+        torch.equal(a, b) for a, b in zip(outs["slow"][1], outs["fast"][1])
+    ):
+        raise AssertionError("slow-restored and fast-forked sessions decode differently")
+    launches = {k: n - launches0.get(k, 0) for k, n in launch_counts().items()}
+    n_steps = eng.decode_steps - steps0
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    health = cr.health()
+    for sess in kids + [fast, slow, sm.sandbox.proc]:
+        sess.release()
+    cr.shutdown()
+    return {
+        "config": config,
+        "layers": n_layers,
+        "params": model.param_count(),
+        "launches": launches,
+        "decode_steps": n_steps,
+        "init_s": init_s,
+        "prefill_ms": prefill_ms,
+        "prefill_tokens": prompt_len,
+        "decode_ms_b1_median": statistics.median(b1_ms),
+        "tokens_per_s_b1": 1e3 / statistics.median(b1_ms),
+        "decode_ms_b4_median": statistics.median(b4_ms),
+        "tokens_per_s_b4": forks * 1e3 / statistics.median(b4_ms),
+        "materialize_ms_median": statistics.median(mat_ms),
+        "materialize_calls_timed": len(mat_ms),
+        "checkpoint_call_ms": ckpt_call_ms,
+        "dump_complete_ms": dump_ms,
+        "fast_restore_ms_median": statistics.median(fast_ms),
+        "slow_restore_ms": slow_ms,
+        "d2h_bytes_c2": d2h,
+        "c2_dirtied_chunks": img2.dirtied_chunks,
+        "page_row_bytes": row_bytes,
+        "max_memory_allocated": peak,
+        "dense_vs_paged_max_abs_logit_diff": {"prefill": prefill_diff, "step1": step1_diff},
+        "decode_step_profile_b4": profile,
+        "cow_copies": pool.stats.cow_copies,
+        "dump_retries": health["dump_retries"],
+    }
+
+
+def _profile_step(eng, sessions, top: int = 8) -> dict:
+    """One batched decode step under ``torch.profiler``: host wall time,
+    the device's busy time (sum of kernel self times on the one stream),
+    the idle share, and the kernels that take most of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        eng.step(sessions)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        # device-side events only: an operator's own entry repeats the time
+        # of the kernels it launched
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        if us > 0:
+            rows.append((e.key, us / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    return {
+        "batch": len(sessions),
+        "wall_ms": wall,
+        "device_busy_ms": busy,
+        "device_idle_share": 1.0 - busy / wall if wall > 0 else None,
+        "kernel_launches": sum(r[2] for r in rows),
+        "top": [[name[:60], ms, n] for name, ms, n in rows[:top]],
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -583,17 +1092,42 @@ def main() -> int:
     times = time_kernels(device)
     torch.cuda.empty_cache()
 
-    # -- phase 4: the main path (launch counts taken over exactly this run)
+    # -- phase 3b: the serving kernels against their plain versions, then times
+    errs.update(check_serving_kernels(device))
+    say(f"[3b kernels] page copies bit-exact, paged_attention within "
+        f"{PA_TOL['float32']} (fp32) / {PA_TOL['bfloat16']} (bf16): {json.dumps(errs)}")
+    times.update(time_serving_kernels(device))
+    torch.cuda.empty_cache()
+    card = f"{smi_line}"
+
+    # -- phase 4: the C/R main path (launch counts taken over exactly this run)
     reset_launch_counts()
     metrics = run_main_path(device)
     launches = launch_counts()
     say(f"[4 main path] launches {json.dumps(launches)}")
-    for k, n in launches.items():
-        if n <= 0:
+    for k in ("delta_fused", "delta_diff", "delta_apply"):
+        if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")
-    card = f"{smi_line}"
     say(f"[4 main path] {json.dumps(metrics)} (card: {card})")
     say(f"[4 main path] auto mode, for information: {json.dumps(run_auto_turns(device))}")
+    gc.collect()              # phase 4's DeltaCR holds its state in a reference cycle
+    torch.cuda.empty_cache()
+    say(f"[4 main path] device memory still allocated: {torch.cuda.memory_allocated()} B")
+
+    # -- phase 6: the serving path (launch counts taken over exactly this run)
+    reset_launch_counts()
+    serving = run_serving_path(device)
+    serve_launches = launch_counts()
+    say(f"[6 serving] launches {json.dumps(serve_launches)}")
+    for k in ("paged_attention", "page_copy_stacked", "delta_diff", "delta_apply"):
+        if serve_launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the serving path")
+    if serve_launches["paged_attention"] != serving["layers"] * serving["decode_steps"]:
+        fail(f"paged_attention launched {serve_launches['paged_attention']} times over "
+             f"{serving['decode_steps']} decode steps of {serving['layers']} layers")
+    say(f"[6 serving] {json.dumps(serving)} (card: {card})")
+    for k in ("page_copy", "page_copy_stacked", "paged_attention"):
+        launches[k] = serve_launches[k]
 
     # -- phase 5: report
     kernels = []
@@ -604,6 +1138,12 @@ def main() -> int:
                        "src/repro/kernels/delta_diff.py:26"),
         "delta_apply": ("src/repro_torch/kernels/csrc/delta_apply.cu",
                         "src/repro/kernels/delta_apply.py:28"),
+        "page_copy_stacked": ("src/repro_torch/kernels/csrc/page_copy.cu",
+                              "src/repro/kernels/page_copy.py:58"),
+        "page_copy": ("src/repro_torch/kernels/csrc/page_copy.cu",
+                      "src/repro/kernels/page_copy.py:29"),
+        "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
+                            "src/repro/kernels/paged_attention.py:101"),
     }
     for key, t in times.items():
         kname = "delta_apply" if key.startswith("delta_apply") else key
@@ -611,6 +1151,7 @@ def main() -> int:
                         "kernel_ms": t["kernel_ms"], "kernel_warm_ms": t["kernel_warm_ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "library_ms": t["library_ms"],
+                        **({"library_note": t["library_note"]} if "library_note" in t else {}),
                         "card": card}))
     for kname, (source, replaces) in meta.items():
         t = times[kname]

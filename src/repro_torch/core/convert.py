@@ -1,12 +1,14 @@
-"""Carry session state between numpy dicts and :class:`CowTensorState`.
+"""Carry session state and model weights between numpy and the port.
 
 The JAX package's states hand their payload out as ``Dict[str,
-np.ndarray]`` (``dump_payload()``); these helpers build the port's device
-state from the same dict and read it back, so both packages can be fed
-identical state.  bfloat16 crosses as its raw 16-bit words: a numpy array
-whose dtype is named ``bfloat16`` (``ml_dtypes``, present beside JAX only)
-is reinterpreted bit for bit, and ``state_to_numpy`` returns bfloat16
-tensors as ``uint16`` words, since numpy alone cannot hold them.
+np.ndarray]`` (``dump_payload()``) and its models their weights as a
+nested dict of arrays; these helpers build the port's device state and
+``Model`` weights from the same numpy trees and read them back, so both
+packages can be fed identical bytes.  bfloat16 crosses as its raw 16-bit
+words: a numpy array whose dtype is named ``bfloat16`` (``ml_dtypes``,
+present beside JAX only) is reinterpreted bit for bit, and the ``*_to_numpy``
+helpers return bfloat16 tensors as ``uint16`` words, since numpy alone
+cannot hold them.
 """
 from __future__ import annotations
 
@@ -17,7 +19,14 @@ import torch
 
 from .deltacr import CowTensorState
 
-__all__ = ["state_from_numpy", "state_to_numpy", "tensor_from_numpy", "tensor_to_numpy"]
+__all__ = [
+    "params_from_numpy",
+    "params_to_numpy",
+    "state_from_numpy",
+    "state_to_numpy",
+    "tensor_from_numpy",
+    "tensor_to_numpy",
+]
 
 _WORDS = {torch.bfloat16: np.uint16}
 
@@ -54,3 +63,31 @@ def state_from_numpy(
 def state_to_numpy(state: CowTensorState) -> Dict[str, np.ndarray]:
     """Host copies of every tensor of ``state`` (bfloat16 as uint16 words)."""
     return {k: tensor_to_numpy(state.get(k)) for k in state.keys()}
+
+
+def params_from_numpy(tree: Dict[str, Any], device: Any = None) -> Dict[str, Any]:
+    """The JAX package's params pytree (nested dicts of numpy arrays) as the
+    same tree of tensors on ``device`` (the card by default), for
+    ``Model(cfg, params=...)``.  ``uint16`` leaves are bfloat16 words (as
+    ``params_to_numpy`` writes them; no weight of the models is uint16) and
+    are reinterpreted, never converted."""
+    from .deltacr import resolve_device
+
+    dev = resolve_device(device)
+
+    def walk(node: Any) -> Any:
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        t = tensor_from_numpy(np.asarray(node))
+        if t.dtype == torch.uint16:
+            t = t.view(torch.bfloat16)
+        return t.to(dev).contiguous()
+
+    return walk(tree)
+
+
+def params_to_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """Host numpy copies of a params tree (bfloat16 as uint16 words)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    return tensor_to_numpy(tree)

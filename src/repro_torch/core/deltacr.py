@@ -777,6 +777,10 @@ class DeltaCR:
         self._images: Dict[int, Future] = {}        # ckpt_id -> Future[DumpImage]
         self._cancels: Dict[int, threading.Event] = {}   # ckpt_id -> dump cancel
         self._lock = threading.RLock()
+        # A KernelError raised by an async warm: held here and re-raised by
+        # the next checkpoint(), restore() or wait_dumps() (see _safe_warm)
+        self._warm_error: Optional[KernelError] = None
+        self._warm_kernel_errors = 0
         # The lifecycle plane: every DumpImage is owned by the refcounted
         # ImageStore — dependents (in-flight child dumps, decodes, forked
         # sandboxes) hold references, and a dropped parent's chunks survive
@@ -861,8 +865,10 @@ class DeltaCR:
         serialization runs on the background worker, masked by inference.
 
         Transactional: a template-fork failure raises here with nothing
-        registered — no ticket, no template, no dump queued.
+        registered — no ticket, no template, no dump queued.  A kernel
+        failure of an earlier async warm is raised here first.
         """
+        self._raise_warm_error()
         faults.fire("template.fork")
         template = state.fork()
         with self._lock:
@@ -1375,7 +1381,9 @@ class DeltaCR:
         from the dump image — via ``kernels.delta_apply`` over the nearest
         materialized base generation when available — then re-inject the
         rebuilt state as a template so future restores take the fast path.
+        A kernel failure of an earlier async warm is raised here first.
         """
+        self._raise_warm_error()
         with self._lock:
             template = self._templates.get(ckpt_id)
             if template is not None:
@@ -1428,12 +1436,27 @@ class DeltaCR:
             self._warm_executor.submit(self._safe_warm, new_state)
         return new_state, "slow"
 
-    @staticmethod
-    def _safe_warm(state: ForkableState) -> None:
+    def _safe_warm(self, state: ForkableState) -> None:
+        """Run a state's warm on the warm thread.  Warm is best-effort (plain
+        CoW stays correct), so its failures are dropped, except a
+        :class:`KernelError`: a kernel that does not build or launch is kept
+        and re-raised by the next checkpoint(), restore() or wait_dumps(),
+        never hidden."""
         try:
             state.warm()
+        except KernelError as exc:
+            with self._lock:
+                self._warm_kernel_errors += 1
+                if self._warm_error is None:
+                    self._warm_error = exc
         except Exception:
-            pass  # warm is best-effort; plain CoW remains correct
+            pass
+
+    def _raise_warm_error(self) -> None:
+        with self._lock:
+            exc, self._warm_error = self._warm_error, None
+        if exc is not None:
+            raise exc
 
     # --------------------------------------------------------------- admin
     def dump_future(self, ckpt_id: int) -> Optional[Future]:
@@ -1441,6 +1464,7 @@ class DeltaCR:
             return self._images.get(ckpt_id)
 
     def wait_dumps(self, timeout: Optional[float] = None) -> None:
+        self._raise_warm_error()
         with self._lock:
             futs = list(self._images.values())
         for fut in futs:
@@ -1570,6 +1594,7 @@ class DeltaCR:
         if self.pipeline is not None:
             h["fused_checksum_mismatches"] = self.pipeline.fused_checksum_mismatches
         h["degraded"] = self._degraded
+        h["warm_kernel_errors"] = self._warm_kernel_errors
         h["worker_deaths"] = self._dump_worker.deaths
         h["worker_restarts"] = self._dump_worker.restarts
         rs = self.store.repair_stats.snapshot()

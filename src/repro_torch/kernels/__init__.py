@@ -1,10 +1,13 @@
-"""Hand-written CUDA kernels for the checkpoint/rollback hot path.
+"""Hand-written CUDA kernels for the checkpoint/rollback and serving paths.
 
 * ``delta_diff`` — dirty-chunk bitmap of two byte grids (unfused dump plan).
 * ``delta_fused`` — diff + ordered compaction + checksum lanes in one pass
   over the dirty bytes (default dump plan).
 * ``delta_apply`` — scatter of compacted chunks into a base grid (slow
   restore).
+* ``page_copy_stacked`` / ``page_copy`` — copy-on-write privatization of
+  KV pool pages (the serving loop's CoW fault and async warm).
+* ``paged_attention`` — GQA decode attention through a page table.
 
 Each kernel ships as ``csrc/<name>.cu`` plus a wrapper ``<name>.py`` that
 checks its inputs, launches on the current stream and counts launches;
@@ -22,6 +25,9 @@ from .ops import (
     delta_fused,
     fused_encode,
     launch_counts,
+    page_copy,
+    page_copy_stacked,
+    paged_attention,
     reset_launch_counts,
 )
 
@@ -39,5 +45,8 @@ __all__ = [
     "delta_fused",
     "fused_encode",
     "launch_counts",
+    "page_copy",
+    "page_copy_stacked",
+    "paged_attention",
     "reset_launch_counts",
 ]

@@ -52,6 +52,10 @@ SIGNATURES = {
     "repro_delta_diff": [_P, _P, _P, _I64, _I64, _c.c_int, _P],
     "repro_delta_apply": [_P, _P, _P, _I64, _I64, _I64, _c.c_int, _P],
     "repro_delta_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _c.c_int, _P],
+    "repro_page_copy": [_P, _P, _P, _I64, _I64, _I64, _I64, _c.c_int, _P],
+    "repro_paged_attention": [
+        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _c.c_float, _c.c_int, _P,
+    ],
 }
 
 

@@ -1,10 +1,11 @@
-"""Public entry points for the delta kernels.
+"""Public entry points for the kernels.
 
 Routing is by the tensor's device, per call:
 
 * a **CUDA** tensor goes to the hand-written kernel (``delta_diff.py``,
-  ``delta_fused.py``, ``delta_apply.py``), which launches on the current
-  stream or raises.  Nothing sends a CUDA tensor to the plain version.
+  ``delta_fused.py``, ``delta_apply.py``, ``page_copy.py``,
+  ``paged_attention.py``), which launches on the current stream or
+  raises.  Nothing sends a CUDA tensor to the plain version.
 * a **CPU** tensor goes to the plain PyTorch version in ``ref.py``, which
   is bit-identical to the JAX package's jnp oracles.
 
@@ -24,9 +25,14 @@ from . import ref as _ref
 from .delta_apply import delta_apply
 from .delta_diff import delta_diff
 from .delta_fused import delta_fused
+from .page_copy import page_copy, page_copy_stacked
+from .paged_attention import paged_attention
 from .ref import CHECKSUM_LANES
 
 __all__ = [
+    "paged_attention",
+    "page_copy",
+    "page_copy_stacked",
     "delta_diff",
     "delta_fused",
     "delta_apply",
@@ -43,7 +49,14 @@ __all__ = [
     "CHECKSUM_LANES",
 ]
 
-_KERNELS = {"delta_diff": delta_diff, "delta_fused": delta_fused, "delta_apply": delta_apply}
+_KERNELS = {
+    "delta_diff": delta_diff,
+    "delta_fused": delta_fused,
+    "delta_apply": delta_apply,
+    "page_copy": page_copy,
+    "page_copy_stacked": page_copy_stacked,
+    "paged_attention": paged_attention,
+}
 
 
 def launch_counts() -> dict:

@@ -1,0 +1,92 @@
+"""Decode attention through a copy-on-write page table.
+
+CUDA kernel ``csrc/paged_attention.cu`` replaces the JAX package's
+``kernels/paged_attention.py:paged_attention`` (a Pallas TPU kernel whose
+grid walks ``(B, KVH, max_pages)`` in order, carrying a flash-style online
+softmax in VMEM, with the page table and lengths as scalar prefetch).  On
+the card the work is bound by bytes: each session's active K and V pages
+are read once for about 2·G flops per element.  The design gives one block
+to each (sequence, kv head); its warps split the active pages and keep
+their own float32 online softmax, reading K/V through the table with
+vector loads, and merge with a log-sum-exp combine in shared memory.
+Pages past a session's active count are never read; a session with
+``seq_len == 0`` gets 0, as from the TPU kernel.
+
+Layout, as in the JAX package: q ``(B, KVH, G, D)``, pages
+``(P, page_size, KVH, D)``, table ``(B, max_pages)`` int32 of valid page
+ids, ``seq_lens`` ``(B,)`` int32; float32 or bfloat16; out in q's type.
+The kernel takes D in {64, 128, 256} and G up to 8.  A tensor on the CPU
+goes to ``ref.paged_attention_ref``; a CUDA tensor launches the kernel or
+raises.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+from .ref import paged_attention_ref
+
+__all__ = ["paged_attention"]
+
+KERNEL_HEAD_DIMS = (64, 128, 256)
+KERNEL_MAX_GROUP = 8
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def paged_attention(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    seq_lens: torch.Tensor,
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """See the module docstring.  ``scale=None`` means ``1/sqrt(D)``."""
+    if q.dim() != 4 or k_pages.dim() != 4:
+        raise ValueError(f"paged_attention wants q (B, KVH, G, D) and pages (P, psz, KVH, D), "
+                         f"got {tuple(q.shape)} / {tuple(k_pages.shape)}")
+    B, KVH, G, D = q.shape
+    P, psz, kvh_k, d_k = k_pages.shape
+    if (kvh_k, d_k) != (KVH, D) or v_pages.shape != k_pages.shape:
+        raise ValueError(f"paged_attention: pages {tuple(k_pages.shape)} / {tuple(v_pages.shape)} "
+                         f"do not match q {tuple(q.shape)}")
+    if page_table.dim() != 2 or page_table.shape[0] != B or seq_lens.shape != (B,):
+        raise ValueError(f"paged_attention: table {tuple(page_table.shape)} / lengths "
+                         f"{tuple(seq_lens.shape)} do not match B={B}")
+    if page_table.dtype != torch.int32 or seq_lens.dtype != torch.int32:
+        raise TypeError("paged_attention: page table and lengths must be int32")
+    if not (q.dtype == k_pages.dtype == v_pages.dtype):
+        raise TypeError(f"paged_attention: q {q.dtype}, k {k_pages.dtype}, v {v_pages.dtype}")
+    if len({t.device for t in (q, k_pages, v_pages, page_table, seq_lens)}) != 1:
+        raise ValueError("paged_attention: inputs lie on different devices")
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    if not q.is_cuda:
+        return paged_attention_ref(q, k_pages, v_pages, page_table, seq_lens, scale=scale)
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"paged_attention kernel takes float32 or bfloat16, got {q.dtype}")
+    if D not in KERNEL_HEAD_DIMS or not 1 <= G <= KERNEL_MAX_GROUP:
+        raise ValueError(f"paged_attention kernel takes D in {KERNEL_HEAD_DIMS} and "
+                         f"G <= {KERNEL_MAX_GROUP}, got D={D}, G={G}")
+    tensors = (q, k_pages, v_pages, page_table, seq_lens)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("paged_attention kernel needs contiguous tensors")
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError("paged_attention kernel needs 16-byte aligned q and pages")
+    out = torch.empty_like(q)
+    lib = _build.library()
+    err = lib.repro_paged_attention(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
+        seq_lens.data_ptr(), out.data_ptr(), B, KVH, G, D, psz, page_table.shape[1],
+        float(scale), _DTYPE_CODE[q.dtype], _build.stream_handle(q),
+    )
+    _build.check(err, "paged_attention")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

@@ -1,21 +1,29 @@
-"""Plain PyTorch versions of the delta kernels.
+"""Plain PyTorch versions of the kernels.
 
-Bit-identical to the jnp oracles of the JAX package's ``kernels/ref.py``.
-They are what a wrapper in ``ops.py`` runs for a tensor on the CPU, what
-the CPU tests compare across packages, and what ``chip_smoke.py`` holds
-each CUDA kernel against on the card.  Shapes:
+The counterparts of the jnp oracles of the JAX package's ``kernels/ref.py``
+(bit-identical for the delta kernels and the page copies).  They are what a
+wrapper in ``ops.py`` runs for a tensor on the CPU, what the CPU tests
+compare across packages, and what ``chip_smoke.py`` holds each CUDA kernel
+against on the card.  Shapes:
 
 * chunked device state: ``(num_chunks, chunk_bytes)`` uint8 grids
 * compacted dirty rows: ``(max_changed, chunk_bytes)`` plus ``(max_changed,)``
   int32 chunk indices with -1 padding
+* paged KV: queries ``(B, KVH, G, D)``, pages ``(P, page_size, KVH, D)``
+  (stacked ``(N_periods, P, page_size, KVH, D)`` for the serving pools),
+  page tables ``(B, max_pages)`` int32, lengths ``(B,)`` int32
 """
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 
 __all__ = [
+    "paged_attention_ref",
+    "page_copy_ref",
+    "page_copy_stacked_ref",
     "delta_diff_ref",
     "delta_apply_ref",
     "delta_compact_ref",
@@ -33,6 +41,65 @@ _CS_MULT = 2654435761        # Knuth multiplicative-hash constant
 _CS_ADD = 40503
 _CS_XOR = 2246822519
 _U32 = 0xFFFFFFFF
+
+
+def paged_attention_ref(
+    q: torch.Tensor,            # (B, KVH, G, D)   query grouped by kv head
+    k_pages: torch.Tensor,      # (P, page_size, KVH, D)
+    v_pages: torch.Tensor,      # (P, page_size, KVH, D)
+    page_table: torch.Tensor,   # (B, max_pages) int32
+    seq_lens: torch.Tensor,     # (B,) int32 — tokens currently in cache
+    *,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Decode-step attention reading K/V through a page table.
+
+    Returns (B, KVH, G, D) in ``q.dtype``.  Positions >= seq_len are
+    masked; table entries beyond the active page count may be arbitrary
+    valid page ids.  Scores, softmax and the weighted sum run in float32.
+    A session with ``seq_len == 0`` gets 0, as the TPU kernel gives
+    (``paged_attention.py:97``), not the jnp oracle's NaN."""
+    B, KVH, G, D = q.shape
+    _, page_size, _, _ = k_pages.shape
+    max_pages = page_table.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    S = max_pages * page_size
+    idx = page_table.to(torch.int64)
+    k = k_pages[idx].reshape(B, S, KVH, D).float()
+    v = v_pages[idx].reshape(B, S, KVH, D).float()
+    qf = q.float() * scale
+    scores = torch.einsum("bhgd,bshd->bhgs", qf, k)
+    pos = torch.arange(S, device=q.device)[None, :]
+    mask = pos < seq_lens.to(torch.int64)[:, None]                 # (B, S)
+    scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.where(mask.any(dim=1)[:, None, None, None], probs, torch.zeros_like(probs))
+    out = torch.einsum("bhgs,bshd->bhgd", probs, v)
+    return out.to(q.dtype)
+
+
+def page_copy_ref(
+    pool: torch.Tensor,         # (P, ...) pool
+    src_idx: torch.Tensor,      # (n,) int32
+    dst_idx: torch.Tensor,      # (n,) int32
+) -> torch.Tensor:
+    """CoW privatization on a copy: out[dst_idx[i]] = pool[src_idx[i]].
+
+    dst indices are distinct free pages (the allocator guarantees it), and
+    src/dst sets are disjoint, so copy order is irrelevant."""
+    return page_copy_stacked_ref(pool[None], src_idx, dst_idx)[0]
+
+
+def page_copy_stacked_ref(
+    pool: torch.Tensor,         # (N_periods, P, page_size, KVH, D)
+    src_idx: torch.Tensor,      # (n,) int32
+    dst_idx: torch.Tensor,      # (n,) int32
+) -> torch.Tensor:
+    """Stacked-pool CoW on a copy: out[:, dst_idx[i]] = pool[:, src_idx[i]]."""
+    out = pool.clone()
+    out[:, dst_idx.to(torch.int64)] = pool[:, src_idx.to(torch.int64)]
+    return out
 
 
 def delta_diff_ref(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:

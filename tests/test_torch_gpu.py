@@ -50,7 +50,10 @@ def test_cuda_kernels_match_plain_versions(cuda, N, C, n_dirty, cap):
     assert ops.delta_apply(base, got[0], got[1]) is base
     assert torch.equal(base, ref.delta_apply_ref(old, got[0], got[1]))
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"delta_diff": 1, "delta_fused": 1, "delta_apply": 1}
+    assert ops.launch_counts() == {
+        "delta_diff": 1, "delta_fused": 1, "delta_apply": 1,
+        "page_copy": 0, "page_copy_stacked": 0, "paged_attention": 0,
+    }
 
 
 @pytest.mark.gpu
@@ -112,3 +115,107 @@ def test_cuda_checkpoint_rollback_chain(cuda, fused):
         assert counts["delta_fused" if fused else "delta_diff"] > 0
     finally:
         cr.shutdown()
+
+
+PA_CASES = [
+    # B, KVH, G, D, page_size, P, max_pages, dtype (the sweep of tests/test_kernels.py)
+    (1, 1, 1, 128, 16, 8, 2, torch.float32),
+    (2, 2, 4, 128, 64, 16, 4, torch.float32),
+    (3, 4, 2, 128, 32, 12, 3, torch.float32),
+    (2, 1, 8, 256, 16, 8, 4, torch.float32),
+    (2, 2, 5, 128, 16, 8, 3, torch.float32),
+    (2, 2, 4, 64, 16, 8, 3, torch.float32),
+    (2, 2, 4, 128, 64, 16, 4, torch.bfloat16),
+    (4, 8, 5, 128, 16, 1024, 256, torch.bfloat16),   # the served qwen3-14b shape
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,KVH,G,D,psz,P,maxp,dtype", PA_CASES)
+def test_cuda_paged_attention_matches_plain_version(cuda, B, KVH, G, D, psz, P, maxp, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(B * D + G)
+    q = torch.randn((B, KVH, G, D), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((P, psz, KVH, D), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((P, psz, KVH, D), generator=gen, device=cuda).to(dtype)
+    table = torch.randint(0, P, (B, maxp), generator=gen, device=cuda, dtype=torch.int32)
+    lens = torch.randint(1, maxp * psz + 1, (B,), generator=gen, device=cuda, dtype=torch.int32)
+    if B > 1:
+        lens[0] = 0                               # an empty session gives exactly 0
+    ops.reset_launch_counts()
+    got = ops.paged_attention(q, k, v, table, lens)
+    want = ref.paged_attention_ref(q, k, v, table, lens)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert B == 1 or not got[0].any()
+    assert ops.launch_counts()["paged_attention"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("N,P,psz,KVH,D,n", [
+    (1, 8, 16, 2, 128, 3), (3, 12, 64, 1, 256, 5), (2, 6, 16, 4, 64, 1), (40, 64, 16, 8, 128, 4),
+])
+def test_cuda_page_copy_matches_plain_version(cuda, dtype, N, P, psz, KVH, D, n):
+    gen = torch.Generator(device=cuda).manual_seed(P * D + n)
+    pool = torch.randint(-1000, 1000, (N, P, psz, KVH, D), generator=gen, device=cuda).to(dtype)
+    perm = torch.randperm(P, generator=gen, device=cuda).tolist()
+    src, dst = perm[:n], perm[n : 2 * n]
+    ops.reset_launch_counts()
+    want = ref.page_copy_stacked_ref(pool, torch.tensor(src), torch.tensor(dst))
+    got = ops.page_copy_stacked(pool, src, dst)
+    assert got is pool and torch.equal(pool, want)
+    flat = pool[0].clone()
+    ops.page_copy(flat, src, dst)
+    assert torch.equal(flat, ref.page_copy_ref(pool[0], torch.tensor(src), torch.tensor(dst)))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["page_copy_stacked"] == 1 and counts["page_copy"] == 1
+    ops.page_copy_stacked(pool, [], [])
+    assert ops.launch_counts()["page_copy_stacked"] == 1
+
+
+@pytest.mark.gpu
+def test_cuda_engine_matches_cpu_engine(cuda):
+    """The serving path on the card: prefill, batched decode of a session
+    and its fork (the shared tail page copied for each), through the
+    kernels; float32 logits agree with the same engine on the CPU (plain
+    versions) and tokens are equal."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine, PagePool
+
+    # the tiny qwen3 config widened to a head_dim the kernel takes, odd G = 5
+    cfg = dataclasses.replace(get_config("qwen3-14b-tiny"), n_heads=10, n_kv_heads=2, head_dim=64)
+    cpu_model = Model(cfg, device="cpu")
+    cpu_model.init(torch.Generator().manual_seed(0))
+
+    def to_cuda(t):
+        return {k: to_cuda(v) for k, v in t.items()} if isinstance(t, dict) else t.to(cuda)
+
+    cuda_model = Model(cfg, device=cuda, params=to_cuda(cpu_model.params))
+    engines = [
+        Engine(m, PagePool(cfg, num_pages=32, page_size=16, max_pages_per_session=8, device=d))
+        for m, d in ((cpu_model, "cpu"), (cuda_model, cuda))
+    ]
+    ops.reset_launch_counts()
+    runs = []
+    for eng in engines:
+        trunk = eng.new_session(list(range(3, 24)))        # 21 tokens: tail page part-full
+        kid = trunk.fork()
+        kid.tokens[-1] = 7
+        logits, toks = [], []
+        for _ in range(4):
+            toks.append(eng.step([trunk, kid]))
+            logits.append(np.stack([trunk.extras["last_logits"], kid.extras["last_logits"]]))
+        runs.append((toks, logits, eng.pool.stats.cow_copies))
+    torch.cuda.synchronize()
+    (cpu_toks, cpu_logits, cpu_cow), (gpu_toks, gpu_logits, gpu_cow) = runs
+    assert gpu_toks == cpu_toks and gpu_cow == cpu_cow == 2
+    for a, b in zip(gpu_logits, cpu_logits):
+        np.testing.assert_allclose(a, b, atol=1e-3, rtol=1e-3)
+    counts = ops.launch_counts()
+    assert counts["paged_attention"] == cfg.n_layers * 4
+    assert counts["page_copy_stacked"] == 2

@@ -36,13 +36,17 @@ def test_port_files_import_neither_jax_nor_repro(path):
 
 def test_port_sources_are_covered():
     names = {p.name for p in PORT_FILES}
-    assert {"delta_fused.py", "delta_diff.py", "delta_apply.py", "deltacr.py", "chip_smoke.py"} <= names
+    assert {
+        "delta_fused.py", "delta_diff.py", "delta_apply.py", "deltacr.py", "chip_smoke.py",
+        "page_copy.py", "paged_attention.py", "kvcache.py", "engine.py", "model.py", "layers.py",
+    } <= names
 
 
 def test_importing_the_port_loads_neither_jax_nor_repro():
     code = (
         "import sys; import repro_torch, repro_torch.core, repro_torch.kernels;"
-        "import repro_torch.core.convert;"
+        "import repro_torch.core.convert, repro_torch.configs, repro_torch.models;"
+        "import repro_torch.serve;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes')];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -78,3 +82,21 @@ def test_kernel_wrappers_raise_for_wrong_inputs():
         )
     with pytest.raises(ValueError):
         ops.fused_encode(torch.zeros(4, 8, dtype=torch.uint8), torch.zeros(4, 8, dtype=torch.uint8), 0)
+
+
+def test_serving_entry_points_default_to_the_card():
+    """``Model`` and ``PagePool`` without a device mean the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.serve import PagePool
+
+    cfg = get_config("olmo-1b-tiny")
+    if torch.cuda.is_available():
+        assert Model(cfg).device.type == "cuda"
+        assert PagePool(cfg, num_pages=4).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagePool(cfg, num_pages=4)
+    assert PagePool(cfg, num_pages=4, device="cpu").pools_k["stage0"]["l0_s0_attn"].device.type == "cpu"

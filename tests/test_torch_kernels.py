@@ -182,7 +182,10 @@ def test_cpu_tensors_never_launch_kernels():
     tops.delta_encode(old, new, 4)
     data, idx, _, _ = tops.fused_encode(old, new, 4)
     tops.delta_apply(old.clone(), data, idx)
-    assert tops.launch_counts() == {"delta_diff": 0, "delta_fused": 0, "delta_apply": 0}
+    assert tops.launch_counts() == {
+        "delta_diff": 0, "delta_fused": 0, "delta_apply": 0,
+        "page_copy": 0, "page_copy_stacked": 0, "paged_attention": 0,
+    }
 
 
 def test_host_fetch_of_cpu_tensors():
