@@ -11,7 +11,10 @@ Phases:
    source, in parallel) and prints the build time and ``ptxas`` report;
 3. kernels — ``delta_fused``, ``delta_diff`` and ``delta_apply`` against their
    plain PyTorch versions on the card, bit-exact (``torch.equal`` on every
-   output), at the main path's shapes and at edge shapes, then timed with
+   output), at the main path's shapes and at edge shapes (for
+   ``delta_apply`` also the serving restore's 2 rows of 1,310,720 B, rows
+   that end inside a segment, unaligned rows, a misaligned pointer, only
+   padding), then timed with
    CUDA events: each kernel captured in a CUDA graph, so host time stays out
    of its reading (median over many replays, L2 flushed before each, plus a
    warm reading of back-to-back launches);
@@ -23,8 +26,8 @@ Phases:
 3b. serving kernels — ``page_copy_stacked`` and ``page_copy`` bit-exact
    against their plain versions at the served qwen3-14b pool and at the edge
    sweeps, ``paged_attention`` within 2e-5 (fp32) / 2e-2 (bf16) at the served
-   decode shape, the sweep cases and the length edges (0 gives exactly 0),
-   then timed like phase 3;
+   decode shape, the sweep cases, the length edges (0 gives exactly 0) and
+   the edges of its cluster split, then timed like phase 3 (also at B = 1);
 6. serving path — ``Engine`` over the whole ``qwen3-14b`` config (random bf16
    weights from a seed, 40 layers) and a 1024-page pool: prefill of a
    2011-token prompt, decode, a delta checkpoint, four fast forks decoding
@@ -224,9 +227,12 @@ def check_kernels(device) -> dict:
             errs["delta_diff"], max_abs_err(delta_diff(old, new), ref.delta_diff_ref(old, new))
         )
 
-    def apply_case(N, C, n_valid, M, dtype=torch.uint8):
+    def apply_case(N, C, n_valid, M, dtype=torch.uint8, misaligned=False):
         base = torch.randint(-100, 100, (N, C), generator=gen, device=device).to(dtype)
         data = torch.randint(-100, 100, (M, C), generator=gen, device=device).to(dtype)
+        if misaligned:      # data's pointer one byte past a 16-byte boundary: the byte path
+            spare = torch.empty(M * C + 1, dtype=torch.uint8, device=device)
+            data = spare[1:].view(M, C).copy_(data)
         idx = torch.full((M,), -1, dtype=torch.int32, device=device)
         idx[:n_valid] = torch.randperm(N, generator=gen, device=device)[:n_valid].to(torch.int32)
         want = ref.delta_apply_ref(base, data, idx)
@@ -255,6 +261,11 @@ def check_kernels(device) -> dict:
     diff_case(37, 256, list(range(37)))
     diff_case(37, 256, rows(37, 9), misaligned=True)
     apply_case(64, 512, 0, 8)                             # only -1 padding
+    apply_case(8, 65536, 0, 8)                            # only padding, 16 segments a row
+    apply_case(128, 1310720, 2, 2)                        # the serving restore: 2 page rows
+    apply_case(37, 10000, 12, 16)                         # 16-byte rows, ragged last segment
+    apply_case(37, 5001, 12, 16)                          # unaligned rows: the byte path
+    apply_case(37, 4096, 9, 16, misaligned=True)          # misaligned pointer: the byte path
     torch.cuda.synchronize()
     return errs
 
@@ -302,6 +313,8 @@ def time_kernels(device) -> dict:
     for (N, C, n_valid, M), key in (
         ((256, 65536, 8, 8), "delta_apply"),
         ((4096, 65536, 41, 64), "delta_apply_heap"),
+        # phase 6's slow restore: 2 dirty page rows of a 128-page session
+        ((128, 1310720, 2, 2), "delta_apply_restore"),
     ):
         base = torch.randint(0, 256, (N, C), generator=gen, device=device, dtype=torch.uint8)
         data = torch.randint(0, 256, (M, C), generator=gen, device=device, dtype=torch.uint8)
@@ -387,6 +400,7 @@ def check_serving_kernels(device) -> dict:
     import torch
 
     from repro_torch.kernels import page_copy, page_copy_stacked, paged_attention, ref
+    from repro_torch.kernels.paged_attention import split_count
 
     gen = torch.Generator(device=device).manual_seed(4321)
     errs = {"page_copy": 0.0, "page_copy_stacked": 0.0, "paged_attention": 0.0}
@@ -406,7 +420,11 @@ def check_serving_kernels(device) -> dict:
         key = "page_copy_stacked" if stacked else "page_copy"
         errs[key] = max(errs[key], max_abs_err(got, want))
 
-    def attention_case(*args, lens=None, shared=0):
+    def attention_case(*args, lens=None, shared=0, split=None):
+        B, KVH, maxp = args[0], args[1], args[6]
+        if split is not None and split_count(B, KVH, maxp) != split:
+            raise AssertionError(f"case {args}: split {split_count(B, KVH, maxp)}, "
+                                 f"expected {split}")
         q, k, v, table, seq = _attention_inputs(gen, *args, device, lens=lens, shared=shared)
         got = paged_attention(q, k, v, table, seq)
         want = ref.paged_attention_ref(q, k, v, table, seq)
@@ -434,6 +452,17 @@ def check_serving_kernels(device) -> dict:
     got, _ = attention_case(2, 2, 5, 128, 16, 8, 3, "float32", lens=[0, 17])
     if got[0].abs().max().item() != 0.0:
         raise AssertionError("paged_attention: seq_len == 0 must give exactly 0")
+    # the cluster split's edges (the split each case must take is asserted)
+    served = (kv[0], 5, kv[1], SERVED_PSZ, SERVED_PAGES, SERVED_MAXP)
+    for dtype in ("float32", "bfloat16"):                 # lengths 0, 1 and ~2000 in one batch
+        got, _ = attention_case(3, *served, dtype, lens=[0, 1, 2000], split=8)
+        if got[0].abs().max().item() != 0.0:
+            raise AssertionError("paged_attention: seq_len == 0 must give exactly 0")
+        # 2 active pages over a cluster of 16: 14 blocks without a page
+        attention_case(1, kv[0], 5, kv[1], 16, 64, 64, dtype, lens=[20], split=16)
+        attention_case(2, 2, 8, 256, 16, 64, 64, dtype, split=16)   # largest smem and registers
+        attention_case(2, 2, 4, 128, 16, 64, 37, dtype, split=8)    # 37 pages over 8 blocks
+    attention_case(1, *served, "bfloat16", lens=[2043], split=16)  # B = 1, served width
     torch.cuda.synchronize()
     return errs
 
@@ -445,6 +474,7 @@ def time_serving_kernels(device) -> dict:
 
     from repro_torch.kernels import paged_attention, ref
     from repro_torch.kernels.page_copy import launch_kernel
+    from repro_torch.kernels.paged_attention import max_active_clusters, split_count
 
     gen = torch.Generator(device=device).manual_seed(77)
     flush = torch.empty(512 << 20, dtype=torch.uint8, device=device)
@@ -486,6 +516,7 @@ def time_serving_kernels(device) -> dict:
         device, lens=SERVED_LENS, shared=SERVED_SHARED_PAGES,
     )
     cold, warm = time_graph_ms(lambda: paged_attention(q, k, v, table, lens), flush=flush)
+    split = split_count(SERVED_B, kv[0], SERVED_MAXP)
     # bytes this call needs: every session's active K and V rows (forks'
     # shared pages counted once per session, no dedup), q, out, the active
     # table entries and the lengths
@@ -501,6 +532,30 @@ def time_serving_kernels(device) -> dict:
         "library_note": "no single PyTorch call reads K/V through a page table",
         "bound_ms": bound_ms(2 * tokens * row + 2 * q.numel() * 2 + 4 * active_pages
                              + 4 * SERVED_B),
+        # clusters of this launch, their size, and how many the card holds at once
+        "clusters": [SERVED_B * kv[0], split, max_active_clusters(5, kv[1], torch.bfloat16, split)],
+        # the forks share their first pages: each distinct page read once
+        "bound_unique_ms": bound_ms(
+            2 * SERVED_PSZ * row * (SERVED_SHARED_PAGES + active_pages
+                                    - SERVED_B * SERVED_SHARED_PAGES)
+            + 2 * q.numel() * 2 + 4 * active_pages + 4 * SERVED_B),
+    }
+    # one session at the served width: the largest cluster
+    lens1 = [2043]
+    q, k, v, table, lens = _attention_inputs(
+        gen, 1, kv[0], 5, kv[1], SERVED_PSZ, SERVED_PAGES, SERVED_MAXP, "bfloat16", device,
+        lens=lens1,
+    )
+    cold, warm = time_graph_ms(lambda: paged_attention(q, k, v, table, lens), flush=flush)
+    pages1 = -(-lens1[0] // SERVED_PSZ)
+    out["paged_attention_b1"] = {
+        "shape": [1, kv[0], 5, kv[1], SERVED_PSZ, SERVED_PAGES, SERVED_MAXP],
+        "kernel_ms": cold,
+        "kernel_warm_ms": warm,
+        "plain_ms": time_ms(lambda: ref.paged_attention_ref(q, k, v, table, lens), flush=flush),
+        "library_ms": None,
+        "library_note": "no single PyTorch call reads K/V through a page table",
+        "bound_ms": bound_ms(2 * lens1[0] * row + 2 * q.numel() * 2 + 4 * pages1 + 4),
     }
     return out
 
@@ -1146,13 +1201,12 @@ def main() -> int:
                             "src/repro/kernels/paged_attention.py:101"),
     }
     for key, t in times.items():
-        kname = "delta_apply" if key.startswith("delta_apply") else key
+        kname = next(k for k in meta if key == k or key.startswith(k + "_"))
+        extra = {k: t[k] for k in ("library_note", "bound_unique_ms", "clusters") if k in t}
         say(json.dumps({"name": key, "shape": t["shape"], "launches": launches[kname],
                         "kernel_ms": t["kernel_ms"], "kernel_warm_ms": t["kernel_warm_ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                        "library_ms": t["library_ms"],
-                        **({"library_note": t["library_note"]} if "library_note" in t else {}),
-                        "card": card}))
+                        "library_ms": t["library_ms"], **extra, "card": card}))
     for kname, (source, replaces) in meta.items():
         t = times[kname]
         kernels.append({

@@ -1,7 +1,8 @@
 // Shared device helpers for the delta kernels (row compare, row copy,
-// checksum lanes).  Every kernel here works on (rows, row_bytes) uint8 grids:
-// one thread block owns one row at a time, threads stride over the row in
-// 16-byte vectors when the caller says the rows are 16-byte aligned.
+// checksum lanes).  The kernels work on (rows, row_bytes) uint8 grids; with
+// these helpers one thread block owns one row at a time, threads stride over
+// the row in 16-byte vectors when the caller says the rows are 16-byte
+// aligned.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -4,9 +4,11 @@ CUDA kernel ``csrc/delta_apply.cu`` replaces the JAX package's
 ``kernels/delta_apply.py:_delta_apply_kernel`` (a Pallas TPU kernel with
 the indices as scalar prefetch and the base aliased to the output).  On the
 card the work is bound by bytes: the valid rows of ``data`` are read once
-and written once into ``base``.  The design gives one thread block to each
-compacted row; a padding row (-1) returns at once and a valid row is copied
-in 16-byte vectors.
+and written once into ``base``.  The design spreads every row over many
+blocks, one per 4 KiB segment, each thread loading its 16-byte vectors
+(bytes, for rows that are not 16-byte aligned) together with the row's
+index and storing them only where the index is valid, so padding (-1)
+writes nothing.
 
 Unlike the JAX call, which donates nothing, the kernel **mutates ``base`` in
 place** and returns it: a caller that must keep its base passes a clone.

@@ -5,12 +5,15 @@ CUDA kernel ``csrc/paged_attention.cu`` replaces the JAX package's
 grid walks ``(B, KVH, max_pages)`` in order, carrying a flash-style online
 softmax in VMEM, with the page table and lengths as scalar prefetch).  On
 the card the work is bound by bytes: each session's active K and V pages
-are read once for about 2·G flops per element.  The design gives one block
-to each (sequence, kv head); its warps split the active pages and keep
-their own float32 online softmax, reading K/V through the table with
-vector loads, and merge with a log-sum-exp combine in shared memory.
-Pages past a session's active count are never read; a session with
-``seq_len == 0`` gets 0, as from the TPU kernel.
+are read once for about 2·G flops per element.  The design is split-K in
+one launch: each (sequence, kv head) gets a thread-block cluster of
+``split_count(B, KVH, max_pages)`` blocks, which share out the session's
+active pages, stage them in shared memory with ``cp.async``, keep their own
+float32 online softmax a 16-token tile at a time (bfloat16 on the tensor
+cores with ``mma.sync``, float32 on the CUDA cores), and merge through
+distributed shared memory with a log-sum-exp combine.  Pages past a
+session's active count are never read; a session with ``seq_len == 0``
+gets 0, as from the TPU kernel.
 
 Layout, as in the JAX package: q ``(B, KVH, G, D)``, pages
 ``(P, page_size, KVH, D)``, table ``(B, max_pages)`` int32 of valid page
@@ -21,6 +24,8 @@ raises.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -29,11 +34,36 @@ import torch
 from . import _build
 from .ref import paged_attention_ref
 
-__all__ = ["paged_attention"]
+__all__ = ["paged_attention", "split_count", "max_active_clusters"]
 
 KERNEL_HEAD_DIMS = (64, 128, 256)
 KERNEL_MAX_GROUP = 8
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+H100_SMS = 132
+MAX_SPLIT = 16               # the largest cluster the card takes (non-portable above 8)
+MIN_PAGES_PER_BLOCK = 4      # a narrower table is not worth splitting
+
+
+def split_count(batch: int, kv_heads: int, max_pages: int, sms: int = H100_SMS) -> int:
+    """Blocks per (sequence, kv head) cluster, from shapes only.
+
+    The smallest power of two that gives at least one block per SM over the
+    ``batch · kv_heads`` clusters, at most ``MAX_SPLIT``, and at most one
+    block per ``MIN_PAGES_PER_BLOCK`` pages of the table (so never more than
+    ``max_pages``).  The kernel splits each session's *active* pages over
+    the cluster, so a block of a short session may get none; reading the
+    lengths here would cost a host sync per layer."""
+    heads = batch * kv_heads
+    if heads <= 0 or max_pages < 2 * MIN_PAGES_PER_BLOCK:
+        return 1
+    want = 1 << (-(-sms // heads) - 1).bit_length()
+    cap = min(MAX_SPLIT, want, max_pages // MIN_PAGES_PER_BLOCK)
+    return 1 << (cap.bit_length() - 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def paged_attention(
@@ -78,10 +108,12 @@ def paged_attention(
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
         raise ValueError("paged_attention kernel needs 16-byte aligned q and pages")
     out = torch.empty_like(q)
+    max_pages = page_table.shape[1]
+    split = split_count(B, KVH, max_pages, _sm_count(q.device.index or 0))
     lib = _build.library()
     err = lib.repro_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-        seq_lens.data_ptr(), out.data_ptr(), B, KVH, G, D, psz, page_table.shape[1],
+        seq_lens.data_ptr(), out.data_ptr(), B, KVH, G, D, psz, max_pages, split,
         float(scale), _DTYPE_CODE[q.dtype], _build.stream_handle(q),
     )
     _build.check(err, "paged_attention")
@@ -90,3 +122,15 @@ def paged_attention(
 
 
 paged_attention.launches = 0
+
+
+def max_active_clusters(group: int, head_dim: int, dtype: torch.dtype, split: int) -> int:
+    """How many clusters of ``split`` blocks of the kernel for this group
+    size, head dim and type the card holds at once (the CUDA occupancy
+    calculator; nothing is launched).  A launch of more clusters runs in
+    waves."""
+    n = ctypes.c_int(-1)
+    err = _build.library().repro_paged_attention_clusters(
+        group, head_dim, split, _DTYPE_CODE[dtype], ctypes.addressof(n))
+    _build.check(err, "paged_attention occupancy")
+    return n.value

@@ -219,3 +219,74 @@ def test_cuda_engine_matches_cpu_engine(cuda):
     counts = ops.launch_counts()
     assert counts["paged_attention"] == cfg.n_layers * 4
     assert counts["page_copy_stacked"] == 2
+
+
+# the cluster split's edges: (B, KVH, G, D, page_size, P, max_pages, lengths, split it must take)
+SPLIT_CASES = [
+    (3, 8, 5, 128, 16, 1024, 256, [0, 1, 2000], 8),     # lengths 0, 1 and ~2000 in one batch
+    (1, 8, 5, 128, 16, 64, 64, [20], 16),                # 2 active pages over 16 blocks
+    (1, 8, 5, 128, 16, 1024, 256, [2043], 16),           # B = 1 at the served width
+    (2, 2, 8, 256, 16, 64, 64, [1000, 7], 16),           # largest shared memory and registers
+    (2, 2, 4, 128, 16, 64, 37, [592, 300], 8),           # 37 pages over 8 blocks
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,KVH,G,D,psz,P,maxp,lens,split", SPLIT_CASES)
+def test_cuda_paged_attention_split_edges(cuda, dtype, B, KVH, G, D, psz, P, maxp, lens, split):
+    from repro_torch.kernels.paged_attention import split_count
+
+    assert split_count(B, KVH, maxp) == split
+    gen = torch.Generator(device=cuda).manual_seed(P + maxp + G)
+    q = torch.randn((B, KVH, G, D), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((P, psz, KVH, D), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((P, psz, KVH, D), generator=gen, device=cuda).to(dtype)
+    table = torch.randint(0, P, (B, maxp), generator=gen, device=cuda, dtype=torch.int32)
+    seq = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    ops.reset_launch_counts()
+    got = ops.paged_attention(q, k, v, table, seq)
+    want = ref.paged_attention_ref(q, k, v, table, seq)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    for b, n in enumerate(lens):
+        assert n > 0 or not got[b].any()
+    assert ops.launch_counts()["paged_attention"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,C,n_valid,M,misaligned", [
+    (128, 1310720, 2, 2, False),     # the serving restore: 2 page rows of 1.31 MB
+    (37, 10000, 12, 16, False),      # 16-byte rows, a ragged last 4 KiB segment
+    (37, 5001, 12, 16, False),       # rows that are not 16-byte aligned: the byte path
+    (37, 4096, 9, 16, True),         # a misaligned data pointer: the byte path
+    (8, 65536, 0, 8, False),         # only padding
+])
+def test_cuda_delta_apply_segments(cuda, N, C, n_valid, M, misaligned):
+    gen = torch.Generator(device=cuda).manual_seed(N + C)
+    base = torch.randint(0, 256, (N, C), generator=gen, device=cuda, dtype=torch.uint8)
+    data = torch.randint(0, 256, (M, C), generator=gen, device=cuda, dtype=torch.uint8)
+    if misaligned:
+        data = torch.empty(M * C + 1, dtype=torch.uint8, device=cuda)[1:].view(M, C).copy_(data)
+        assert data.data_ptr() % 16
+    idx = torch.full((M,), -1, dtype=torch.int32, device=cuda)
+    idx[:n_valid] = torch.randperm(N, generator=gen, device=cuda)[:n_valid].to(torch.int32)
+    want = ref.delta_apply_ref(base, data, idx)
+    ops.reset_launch_counts()
+    got = ops.delta_apply(base.clone(), data, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert ops.launch_counts()["delta_apply"] == 1
+
+
+@pytest.mark.gpu
+def test_cuda_served_attention_launch_fits_one_wave(cuda):
+    """The served decode launch (B = 4 forks, 8 kv heads, 256-page table:
+    32 clusters of 8 bf16 blocks) fits the card at once, so no cluster
+    waits for a second wave."""
+    from repro_torch.kernels.paged_attention import max_active_clusters, split_count
+
+    split = split_count(4, 8, 256)
+    assert split == 8
+    assert max_active_clusters(5, 128, torch.bfloat16, split) >= 4 * 8
