@@ -12,12 +12,15 @@ Phases:
 3. kernels — ``delta_fused``, ``delta_diff`` and ``delta_apply`` against their
    plain PyTorch versions on the card, bit-exact (``torch.equal`` on every
    output), at the main path's shapes and at edge shapes (for
-   ``delta_apply`` also the serving restore's 2 rows of 1,310,720 B, rows
-   that end inside a segment, unaligned rows, a misaligned pointer, only
-   padding), then timed with
+   ``delta_fused`` also the edges of its look-back: 40, 625 and 1,563
+   tiles, tiles past the rows, all clean, all dirty; for ``delta_apply``
+   the serving restore's 2 rows of 1,310,720 B, rows that end inside a
+   segment, unaligned rows, a misaligned pointer, only padding), then the
+   launch floor (an empty kernel) and each kernel timed with
    CUDA events: each kernel captured in a CUDA graph, so host time stays out
-   of its reading (median over many replays, L2 flushed before each, plus a
-   warm reading of back-to-back launches);
+   of its reading (median over many replays, L2 flushed before each by a
+   memset and, for the clean reading, by a read, plus a warm reading of
+   back-to-back launches);
 4. main path — ``StateManager(Sandbox(DeltaFS, CowTensorState), DeltaCR)``
    on the card with the KV cache of the JAX package's ``qwen3-14b`` config at
    full width for one 8192-token session plus a 256 MiB heap: 8 agent turns,
@@ -27,17 +30,22 @@ Phases:
    against their plain versions at the served qwen3-14b pool and at the edge
    sweeps, ``paged_attention`` within 2e-5 (fp32) / 2e-2 (bf16) at the served
    decode shape, the sweep cases, the length edges (0 gives exactly 0) and
-   the edges of its cluster split, then timed like phase 3 (also at B = 1);
+   the edges of its cluster split, then timed like phase 3 (also at B = 1,
+   and ``page_copy_stacked`` over one pool and over the K and V pools in
+   one launch, as a materialize runs it);
 6. serving path — ``Engine`` over the whole ``qwen3-14b`` config (random bf16
    weights from a seed, 40 layers) and a 1024-page pool: prefill of a
    2011-token prompt, decode, a delta checkpoint, four fast forks decoding
    16 batched steps, a slow restore that must decode exactly what a fast
    fork decodes; CoW block accounting and the delta image's dirty rows
    checked, launches counted over this phase alone;
+4b. checkpoint profile — the C/R cell of phase 4 for 4 turns, turn 1's
+   checkpoint and dump under ``torch.profiler``: the device time one
+   checkpoint costs, by kernel, copy and memset;
 5. report — one JSON line per kernel, the ``{"kernels": [...]}`` line, the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
-Phases run in the order 1, 2, 3, 3b, 4, 6, 5.
+Phases run in the order 1, 2, 3, 3b, 4, 6, 4b, 5.
 
 Any failure exits non-zero before the last line is printed.  The script
 imports nothing of JAX or of the JAX package.
@@ -67,6 +75,8 @@ TOKENS_PER_TURN = 256          # 8 rows of 64 KiB per KV tensor
 PREFIX_TOKENS = 4096           # session tokens already in the cache
 HEAP_ROW_FRAC = 0.01           # heap rows rewritten per turn
 CHUNK_BYTES = 64 * 1024        # DeltaCR's default chunk
+PROFILED_TURN = 1              # phase 4b: the turn whose checkpoint's device time is profiled
+PROFILED_TURNS = 4             # phase 4b: the turns it drives (the fewest run_main_path takes)
 
 
 def fail(msg: str) -> None:
@@ -138,9 +148,12 @@ def time_graph_ms(fn, *, flush, iters: int = 40, batch: int = 20) -> tuple:
     captured in a CUDA graph, so a timed replay is one short host call
     while the card is still busy with the memset of ``flush`` before it.
 
-    Returns (cold, warm): ``cold`` is the median over ``iters`` replays of
-    one call, each after the memset has evicted the L2; ``warm`` is one
-    replay of ``batch`` calls captured back to back, divided by ``batch``."""
+    Returns (cold, warm, clean): ``cold`` is the median over ``iters``
+    replays of one call, each after the memset has evicted the L2 (and left
+    it full of dirty lines, which the call's own traffic must write back);
+    ``warm`` is one replay of ``batch`` calls captured back to back, divided
+    by ``batch``; ``clean`` is ``cold`` with a read of ``flush`` in place of
+    the memset, which evicts the L2 and leaves it clean."""
     import torch
 
     for _ in range(2):
@@ -164,6 +177,16 @@ def time_graph_ms(fn, *, flush, iters: int = 40, batch: int = 20) -> tuple:
         one.replay()
         end.record()
         pairs.append((start, end))
+    clean = []
+    words = flush.view(torch.int64)
+    for _ in range(iters):
+        words.sum()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        one.replay()
+        end.record()
+        clean.append((start, end))
     flush.zero_()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -173,8 +196,9 @@ def time_graph_ms(fn, *, flush, iters: int = 40, batch: int = 20) -> tuple:
     torch.cuda.synchronize()
     cold = statistics.median(s.elapsed_time(e) for s, e in pairs)
     warm = start.elapsed_time(end) / batch
+    cold_clean = statistics.median(s.elapsed_time(e) for s, e in clean)
     del one, many
-    return cold, warm
+    return cold, warm, cold_clean
 
 
 def bound_ms(nbytes: int) -> float:
@@ -257,6 +281,14 @@ def check_kernels(device) -> dict:
     fused_case(37, 256, list(range(37)), 64)              # all dirty, cap > N
     fused_case(1000, 96, rows(1000, 300), 512)            # scan over several tiles
     fused_case(37, 256, rows(37, 9), 16, misaligned=True) # scalar path
+    # the one-pass look-back's edges
+    fused_case(5000, 96, rows(5000, 1500), 2048)          # 40 tiles: look-back past 32
+    fused_case(20000, 2048, rows(20000, 3000), 4096)      # 625 tiles of 32 rows
+    fused_case(200000, 96, rows(200000, 5000), 8192)      # 1,563 tiles: more than fit at once
+    fused_case(37, 256, rows(37, 9), 300)                 # cap > N: two tiles past the rows
+    fused_case(256, 65536, [], 128)                       # all clean at the dump shape
+    fused_case(256, 65536, list(range(256)), 128)         # all dirty: overflow, one row a tile
+    fused_case(700, 100, rows(700, 250), 512)             # rows not 16-byte multiples
     diff_case(37, 256, [])
     diff_case(37, 256, list(range(37)))
     diff_case(37, 256, rows(37, 9), misaligned=True)
@@ -268,6 +300,24 @@ def check_kernels(device) -> dict:
     apply_case(37, 4096, 9, 16, misaligned=True)          # misaligned pointer: the byte path
     torch.cuda.synchronize()
     return errs
+
+
+def time_launch_floor(device) -> list:
+    """[cold, warm, clean] ms of an empty kernel (one block of 32 threads)
+    captured alone in a graph and timed as every kernel is: the least any
+    launch here can read."""
+    import torch
+
+    from repro_torch.kernels import _build
+
+    lib = _build.library()
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=device)
+
+    def empty():
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _build.check(lib.repro_launch_floor(stream), "launch_floor")
+
+    return list(time_graph_ms(empty, flush=flush))
 
 
 def time_kernels(device) -> dict:
@@ -282,10 +332,11 @@ def time_kernels(device) -> dict:
     out = {}
 
     def timed(kernel, plain, library=None):
-        cold, warm = time_graph_ms(kernel, flush=flush)
+        cold, warm, clean = time_graph_ms(kernel, flush=flush)
         return {
             "kernel_ms": cold,
             "kernel_warm_ms": warm,
+            "kernel_cold_clean_ms": clean,
             "plain_ms": time_ms(plain, flush=flush),
             "library_ms": time_graph_ms(library, flush=flush)[0] if library else None,
         }
@@ -420,6 +471,18 @@ def check_serving_kernels(device) -> dict:
         key = "page_copy_stacked" if stacked else "page_copy"
         errs[key] = max(errs[key], max_abs_err(got, want))
 
+    def pools_case(shape, n, dtype, n_pools):
+        """Several pools of one shape in one call, as a materialize makes it."""
+        pools = [torch.randint(-1000, 1000, shape, generator=gen, device=device).to(dtype)
+                 for _ in range(n_pools)]
+        perm = torch.randperm(shape[1], generator=gen, device=device).tolist()
+        src, dst = perm[:n], perm[n : 2 * n]
+        s, d = torch.tensor(src, device=device), torch.tensor(dst, device=device)
+        wants = [ref.page_copy_stacked_ref(p, s, d) for p in pools]
+        page_copy_stacked(pools, src, dst)
+        for p, w in zip(pools, wants):
+            errs["page_copy_stacked"] = max(errs["page_copy_stacked"], max_abs_err(p, w))
+
     def attention_case(*args, lens=None, shared=0, split=None):
         B, KVH, maxp = args[0], args[1], args[6]
         if split is not None and split_count(B, KVH, maxp) != split:
@@ -437,6 +500,10 @@ def check_serving_kernels(device) -> dict:
     # served shapes: the stacked qwen3-14b pool, n = 4 pairs; one period alone
     copy_case((QWEN3_14B_LAYERS, SERVED_PAGES, SERVED_PSZ, *kv), COPY_PAIRS, torch.bfloat16, True)
     copy_case((SERVED_PAGES, SERVED_PSZ, *kv), COPY_PAIRS, torch.bfloat16, False)
+    # a served materialize: the K and V pools in one launch; then 9 pools of
+    # 300 pairs, which take 2 x 2 chunks
+    pools_case((QWEN3_14B_LAYERS, SERVED_PAGES, SERVED_PSZ, *kv), COPY_PAIRS, torch.bfloat16, 2)
+    pools_case((3, 640, 16, 2, 64), 300, torch.float32, 9)
     # edge sweeps of the JAX package's tests/test_kernels.py:61-71, and n = 1
     for P, psz, KVH, D in [(8, 16, 2, 128), (12, 64, 1, 256), (6, 16, 4, 64)]:
         for dtype in (torch.float32, torch.bfloat16, torch.int32):
@@ -492,17 +559,20 @@ def time_serving_kernels(device) -> dict:
         s = perm[:COPY_PAIRS].to(torch.int32)
         d = perm[COPY_PAIRS : 2 * COPY_PAIRS].to(torch.int32)
         sl, dl = s.long(), d.long()
+        s_host, d_host = s.cpu().numpy(), d.cpu().numpy()
         plain = ref.page_copy_stacked_ref if key == "page_copy_stacked" else ref.page_copy_ref
         if key == "page_copy_stacked":
             library = lambda: stacked.__setitem__((slice(None), dl), stacked[:, sl])  # noqa: E731
         else:
             library = lambda: pool.__setitem__(dl, pool[sl])  # noqa: E731
-        cold, warm = time_graph_ms(lambda: launch_kernel(stacked, s, d), flush=flush)
+        cold, warm, clean = time_graph_ms(lambda: launch_kernel([stacked], s_host, d_host),
+                                          flush=flush)
         page_bytes = stacked[0, 0].numel() * stacked.element_size()
         out[key] = {
             "shape": list(shape) + [COPY_PAIRS],
             "kernel_ms": cold,
             "kernel_warm_ms": warm,
+            "kernel_cold_clean_ms": clean,
             "plain_ms": time_ms(lambda: plain(pool, s, d), flush=flush),
             "library_ms": time_graph_ms(library, flush=flush)[0],
             # each source page read once, each destination page written once
@@ -510,12 +580,37 @@ def time_serving_kernels(device) -> dict:
                                  + 2 * COPY_PAIRS * 4),
         }
         del pool, stacked
+    # what a served materialize launches: the K and V pools in one launch
+    shape = (QWEN3_14B_LAYERS, SERVED_PAGES, SERVED_PSZ, *kv)
+    pools = [torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+             for _ in range(2)]
+    perm = torch.randperm(SERVED_PAGES - 1, generator=gen, device=device) + 1
+    s = perm[:COPY_PAIRS].to(torch.int32)
+    d = perm[COPY_PAIRS : 2 * COPY_PAIRS].to(torch.int32)
+    s_host, d_host = s.cpu().numpy(), d.cpu().numpy()
+    cold, warm, clean = time_graph_ms(lambda: launch_kernel(pools, s_host, d_host),
+                                      flush=flush)
+    page_bytes = pools[0][0, 0].numel() * pools[0].element_size()
+    out["page_copy_stacked_kv"] = {
+        "shape": list(shape) + [COPY_PAIRS, len(pools)],
+        "kernel_ms": cold,
+        "kernel_warm_ms": warm,
+        "kernel_cold_clean_ms": clean,
+        "plain_ms": time_ms(lambda: [ref.page_copy_stacked_ref(p, s, d) for p in pools],
+                            flush=flush),
+        "library_ms": None,
+        "library_note": "two pools: no single PyTorch call (see the one-pool row)",
+        "bound_ms": bound_ms(len(pools) * 2 * COPY_PAIRS * shape[0] * page_bytes
+                             + 2 * COPY_PAIRS * 4),
+    }
+    del pools
 
     q, k, v, table, lens = _attention_inputs(
         gen, SERVED_B, kv[0], 5, kv[1], SERVED_PSZ, SERVED_PAGES, SERVED_MAXP, "bfloat16",
         device, lens=SERVED_LENS, shared=SERVED_SHARED_PAGES,
     )
-    cold, warm = time_graph_ms(lambda: paged_attention(q, k, v, table, lens), flush=flush)
+    cold, warm, clean = time_graph_ms(lambda: paged_attention(q, k, v, table, lens),
+                                      flush=flush)
     split = split_count(SERVED_B, kv[0], SERVED_MAXP)
     # bytes this call needs: every session's active K and V rows (forks'
     # shared pages counted once per session, no dedup), q, out, the active
@@ -527,6 +622,7 @@ def time_serving_kernels(device) -> dict:
         "shape": [SERVED_B, kv[0], 5, kv[1], SERVED_PSZ, SERVED_PAGES, SERVED_MAXP],
         "kernel_ms": cold,
         "kernel_warm_ms": warm,
+        "kernel_cold_clean_ms": clean,
         "plain_ms": time_ms(lambda: ref.paged_attention_ref(q, k, v, table, lens), flush=flush),
         "library_ms": None,
         "library_note": "no single PyTorch call reads K/V through a page table",
@@ -546,12 +642,14 @@ def time_serving_kernels(device) -> dict:
         gen, 1, kv[0], 5, kv[1], SERVED_PSZ, SERVED_PAGES, SERVED_MAXP, "bfloat16", device,
         lens=lens1,
     )
-    cold, warm = time_graph_ms(lambda: paged_attention(q, k, v, table, lens), flush=flush)
+    cold, warm, clean = time_graph_ms(lambda: paged_attention(q, k, v, table, lens),
+                                      flush=flush)
     pages1 = -(-lens1[0] // SERVED_PSZ)
     out["paged_attention_b1"] = {
         "shape": [1, kv[0], 5, kv[1], SERVED_PSZ, SERVED_PAGES, SERVED_MAXP],
         "kernel_ms": cold,
         "kernel_warm_ms": warm,
+        "kernel_cold_clean_ms": clean,
         "plain_ms": time_ms(lambda: ref.paged_attention_ref(q, k, v, table, lens), flush=flush),
         "library_ms": None,
         "library_note": "no single PyTorch call reads K/V through a page table",
@@ -751,10 +849,11 @@ def run_serving_path(
     st0 = dict(vars(pool.stats))
     pcs0 = launch_counts()["page_copy_stacked"]
     b4_ms, streams = steps(kids, 1)
-    n_tensors = 2 * len(pool.attn_tags)
+    # one materialize that copies: one page_copy_stacked launch takes the
+    # K and V pools of every layer
     if (pool.stats.cow_copies - st0["cow_copies"] != forks
             or pool.stats.materialize_calls - st0["materialize_calls"] != 1
-            or (on_card and launch_counts()["page_copy_stacked"] - pcs0 != n_tensors)):
+            or (on_card and launch_counts()["page_copy_stacked"] - pcs0 != 1)):
         raise AssertionError(f"first fork step: {vars(pool.stats)} vs {st0}")
     ms, more = steps(kids, fork_steps - 1)
     b4_ms += ms
@@ -833,6 +932,24 @@ def run_serving_path(
     }
 
 
+def _device_rows(prof) -> list:
+    """(name, device ms, count) of every device-side event of a profile
+    (kernels, copies, memsets), largest first."""
+    rows = []
+    for e in prof.key_averages():
+        # device-side events only: an operator's own entry repeats the time
+        # of the kernels it launched
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        if us > 0:
+            rows.append((e.key, us / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    return rows
+
+
 def _profile_step(eng, sessions, top: int = 8) -> dict:
     """One batched decode step under ``torch.profiler``: host wall time,
     the device's busy time (sum of kernel self times on the one stream),
@@ -846,18 +963,7 @@ def _profile_step(eng, sessions, top: int = 8) -> dict:
         eng.step(sessions)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        # device-side events only: an operator's own entry repeats the time
-        # of the kernels it launched
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = getattr(e, "cuda_time_total", 0)
-        if us > 0:
-            rows.append((e.key, us / 1e3, e.count))
-    rows.sort(key=lambda r: -r[1])
+    rows = _device_rows(prof)
     busy = sum(r[1] for r in rows)
     return {
         "batch": len(sessions),
@@ -886,10 +992,13 @@ def run_main_path(
     turns: int = TURNS,
     chunk_bytes: int = CHUNK_BYTES,
     seed: int = 0,
+    profile_turn=None,
 ) -> dict:
     """Drive StateManager(Sandbox(DeltaFS, CowTensorState), DeltaCR) through
     ``turns`` agent turns with a checkpoint after each, then a fast rollback
-    and a slow restore; assert every restored byte.  Returns the metrics."""
+    and a slow restore; assert every restored byte.  With ``profile_turn``,
+    that turn's checkpoint and dump run under ``torch.profiler`` (on the
+    card) and stay out of the clock medians.  Returns the metrics."""
     import numpy as np
     import torch
 
@@ -902,7 +1011,8 @@ def run_main_path(
         StateManager,
     )
 
-    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
     gen = torch.Generator(device=device).manual_seed(seed)
     rng = np.random.default_rng(seed)
     token_bytes = kv_heads * head_dim * 2
@@ -961,6 +1071,7 @@ def run_main_path(
                 raise AssertionError(f"{what}: file {k} differs")
 
     ckpt_ms, dump_ms, d2h, stages = [], [], [], []
+    device_per_ckpt = None
     saved = {}
     sync()
     torch.cuda.reset_peak_memory_stats() if torch.device(device).type == "cuda" else None
@@ -996,6 +1107,7 @@ def run_main_path(
         # -- checkpoint: fork + async dump; then wait for the dump to land
         kernel_before, full_before = cr.stats.kernel_keys, cr.stats.full_keys
         d2h_before = cr.pipeline.d2h_bytes
+        prof = _start_device_profile() if on_card and turn == profile_turn else None
         t0 = time.perf_counter()
         c = sm.checkpoint()
         t1 = time.perf_counter()
@@ -1003,12 +1115,15 @@ def run_main_path(
         sync()
         t2 = time.perf_counter()
         ckpts.append(c)
-        ckpt_ms.append((t1 - t0) * 1e3)
-        dump_ms.append((t2 - t0) * 1e3)
         d2h.append(cr.pipeline.d2h_bytes - d2h_before)
         image = cr.dump_future(c).result()
-        stages.append((image.wall_ms, image.encode_ms, image.drain_ms, image.commit_ms,
-                       image.stream_windows))
+        if prof is None:
+            ckpt_ms.append((t1 - t0) * 1e3)
+            dump_ms.append((t2 - t0) * 1e3)
+            stages.append((image.wall_ms, image.encode_ms, image.drain_ms, image.commit_ms,
+                           image.stream_windows))
+        else:
+            device_per_ckpt = _stop_device_profile(prof, turn)
         if image.mode != "delta":
             raise AssertionError(f"checkpoint {c}: mode {image.mode}, expected delta")
         if image.dirtied_chunks != want_dirty:
@@ -1062,6 +1177,7 @@ def run_main_path(
         "files": n_files,
         "checkpoints": len(ckpts),
         "dirtied_chunks_per_checkpoint": want_dirty,
+        "timed_turns": len(ckpt_ms),
         "checkpoint_call_ms_median": statistics.median(ckpt_ms),
         "dump_complete_ms_median": statistics.median(dump_ms),
         "fast_restore_ms_median": fast_ms,
@@ -1076,8 +1192,38 @@ def run_main_path(
         "commit_ms_median": statistics.median(x[3] for x in stages),
         "stream_windows_median": statistics.median(x[4] for x in stages),
         "max_memory_allocated": peak,
+        "device_per_checkpoint": device_per_ckpt,
         "fused_checksum_mismatches": health.get("fused_checksum_mismatches"),
         "dump_retries": health["dump_retries"],
+    }
+
+
+def _start_device_profile():
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.start()
+    return prof
+
+
+def _stop_device_profile(prof, turn: int, top: int = 8) -> dict:
+    """The device time of everything the profiled window ran on the card,
+    on any thread (the dump worker launches the dump's kernels)."""
+    import torch
+
+    torch.cuda.synchronize()
+    prof.stop()
+    rows = _device_rows(prof)
+    fused = [r for r in rows if "delta_fused" in r[0]]
+    return {
+        "turn": turn,
+        "device_busy_ms": sum(r[1] for r in rows),
+        "device_events": sum(r[2] for r in rows),
+        "delta_fused_ms": sum(r[1] for r in fused),
+        "delta_fused_launches": sum(r[2] for r in fused),
+        "top": [[name[:60], ms, n] for name, ms, n in rows[:top]],
     }
 
 
@@ -1107,6 +1253,16 @@ def run_auto_turns(device, turns: int = 3) -> dict:
 
 
 # ---------------------------------------------------------------------------
+def checkpoint_profile(device) -> dict:
+    """Phase 4b: the C/R cell again for a few turns, one checkpoint of it
+    under ``torch.profiler``, for its device time by kernel.  It runs after
+    every timed phase, since the profiler's tracing can slow the host's
+    launches for the rest of the process."""
+    metrics = run_main_path(device, turns=PROFILED_TURNS, profile_turn=PROFILED_TURN)
+    return {"device_per_checkpoint": metrics["device_per_checkpoint"],
+            "d2h_bytes_per_checkpoint_median": metrics["d2h_bytes_per_checkpoint_median"]}
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -1144,6 +1300,9 @@ def main() -> int:
     # -- phase 3: kernels against their plain versions, then times
     errs = check_kernels(device)
     say(f"[3 kernels] bit-exact against the plain versions: {json.dumps(errs)}")
+    floor = time_launch_floor(device)
+    say(f"[3 kernels] launch floor (an empty kernel in a graph, [cold, warm, clean] ms): "
+        f"{json.dumps(floor)}")
     times = time_kernels(device)
     torch.cuda.empty_cache()
 
@@ -1183,6 +1342,11 @@ def main() -> int:
     say(f"[6 serving] {json.dumps(serving)} (card: {card})")
     for k in ("page_copy", "page_copy_stacked", "paged_attention"):
         launches[k] = serve_launches[k]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 4b: one checkpoint's device time, after every timed phase
+    say(f"[4b checkpoint profile] {json.dumps(checkpoint_profile(device))} (card: {card})")
 
     # -- phase 5: report
     kernels = []
@@ -1205,8 +1369,10 @@ def main() -> int:
         extra = {k: t[k] for k in ("library_note", "bound_unique_ms", "clusters") if k in t}
         say(json.dumps({"name": key, "shape": t["shape"], "launches": launches[kname],
                         "kernel_ms": t["kernel_ms"], "kernel_warm_ms": t["kernel_warm_ms"],
+                        "kernel_cold_clean_ms": t["kernel_cold_clean_ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                        "library_ms": t["library_ms"], **extra, "card": card}))
+                        "library_ms": t["library_ms"], **extra,
+                        "launch_floor_ms": floor, "card": card}))
     for kname, (source, replaces) in meta.items():
         t = times[kname]
         kernels.append({

@@ -51,13 +51,14 @@ _I64 = _c.c_int64
 SIGNATURES = {
     "repro_delta_diff": [_P, _P, _P, _I64, _I64, _c.c_int, _P],
     "repro_delta_apply": [_P, _P, _P, _I64, _I64, _I64, _c.c_int, _P],
-    "repro_delta_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _c.c_int, _P],
-    "repro_page_copy": [_P, _P, _P, _I64, _I64, _I64, _I64, _c.c_int, _P],
+    "repro_delta_fused": [_P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _c.c_int, _P],
+    "repro_page_copy": [_P, _c.c_int, _P, _P, _I64, _I64, _I64, _I64, _c.c_int, _P],
     "repro_paged_attention": [
         _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _c.c_float, _c.c_int,
         _P,
     ],
     "repro_paged_attention_clusters": [_I64, _I64, _I64, _c.c_int, _P],
+    "repro_launch_floor": [_P],
 }
 
 

@@ -13,9 +13,9 @@ analogue of a kernel page table + physical pages:
 * **CoW**: the decode step writes in place, so before each step the
   manager *privatizes* every session's write-target page whose refcount
   > 1: allocate a free page, copy its contents with the
-  ``page_copy_stacked`` kernel (one launch per K/V tensor covers every
-  period), swap the table entry.  ``warm`` runs the same privatization off
-  the critical path (async-warm).
+  ``page_copy_stacked`` kernel (one launch covers the K and V pools of
+  every sublayer and every period), swap the table entry.  ``warm`` runs
+  the same privatization off the critical path (async-warm).
 * **Refcount GC**: releasing a session/template decrefs its pages; pages
   at refcount 0 return to the free list.
 
@@ -231,13 +231,19 @@ class PagePool:
     def copy_pages(self, src: List[int], dst: List[int]) -> None:
         """Materialize CoW copies pool-wide (all layers) for (src, dst) pairs.
 
-        One ``page_copy_stacked`` launch per (stage, tag, K/V): the whole
-        batch of pairs, every period, in place."""
+        One ``page_copy_stacked`` call per pool shape takes the K and V
+        pools of every (stage, tag) of that shape: the whole batch of pairs,
+        every period, in place, in one launch for up to 8 pools and 256
+        pairs (a dense model's pools share one shape)."""
         if not src:
             return
+        groups: Dict[Tuple[Tuple[int, ...], torch.dtype], List[torch.Tensor]] = {}
         for skey, tag in self.attn_tags:
-            kops.page_copy_stacked(self.pools_k[skey][tag], src, dst)
-            kops.page_copy_stacked(self.pools_v[skey][tag], src, dst)
+            for pools in (self.pools_k, self.pools_v):
+                t = pools[skey][tag]
+                groups.setdefault((tuple(t.shape), t.dtype), []).append(t)
+        for group in groups.values():
+            kops.page_copy_stacked(group, src, dst)
 
     # ------------------------------------------- transactional CoW batching
     def materialize(self, plans: Sequence["WritePlan"], *, warm: bool = False) -> int:

@@ -218,7 +218,7 @@ def test_cuda_engine_matches_cpu_engine(cuda):
         np.testing.assert_allclose(a, b, atol=1e-3, rtol=1e-3)
     counts = ops.launch_counts()
     assert counts["paged_attention"] == cfg.n_layers * 4
-    assert counts["page_copy_stacked"] == 2
+    assert counts["page_copy_stacked"] == 1          # one materialize: K and V in one launch
 
 
 # the cluster split's edges: (B, KVH, G, D, page_size, P, max_pages, lengths, split it must take)
@@ -290,3 +290,154 @@ def test_cuda_served_attention_launch_fits_one_wave(cuda):
     split = split_count(4, 8, 256)
     assert split == 8
     assert max_active_clusters(5, 128, torch.bfloat16, split) >= 4 * 8
+
+
+def _fused_pair(gen, N, C, n_dirty, device, misaligned=False):
+    """Two (N, C) grids differing in ``n_dirty`` random rows (one byte
+    each, at a random column)."""
+    if misaligned:
+        old = torch.empty(N * C + 1, dtype=torch.uint8, device=device)[1:].view(N, C)
+        old.copy_(torch.randint(0, 256, (N, C), generator=gen, device=device, dtype=torch.uint8))
+        assert old.data_ptr() % 16
+    else:
+        old = torch.randint(0, 256, (N, C), generator=gen, device=device, dtype=torch.uint8)
+    new = old.clone()
+    rows = torch.randperm(N, generator=gen, device=device)[:n_dirty]
+    cols = torch.randint(0, C, (n_dirty,), generator=gen, device=device)
+    new[rows, cols] ^= 0x5A
+    return old, new
+
+
+def _assert_fused_equal(got, old, new, cap):
+    want = ref.fused_encode_ref(old, new, cap)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,C,n_dirty,cap,misaligned", [
+    (5000, 96, 1500, 2048, False),      # 40 tiles of 128 rows: look-back past 32 tiles
+    (20000, 2048, 3000, 4096, False),   # 625 tiles of 32 rows
+    (200000, 96, 5000, 8192, False),    # 1,563 tiles: more than 132 SMs x 8 blocks hold
+    (37, 256, 9, 300, False),           # cap > N: two tiles past the rows
+    (300, 96, 200, 64, False),          # overflow: count > cap
+    (256, 65536, 0, 128, False),        # all clean at the dump path's shape
+    (256, 65536, 256, 128, False),      # all dirty, overflow, one row a tile
+    (37, 256, 9, 16, True),             # misaligned pointer: the byte path
+    (700, 100, 250, 512, False),        # rows that are not 16-byte multiples
+])
+def test_cuda_delta_fused_one_pass_edges(cuda, N, C, n_dirty, cap, misaligned):
+    gen = torch.Generator(device=cuda).manual_seed(N + C + cap)
+    old, new = _fused_pair(gen, N, C, n_dirty, cuda, misaligned)
+    ops.reset_launch_counts()
+    got = ops.delta_fused(old, new, max_changed=cap)
+    torch.cuda.synchronize()
+    _assert_fused_equal(got, old, new, cap)
+    assert int(got[2]) == n_dirty
+    assert ops.launch_counts()["delta_fused"] == 1
+
+
+@pytest.mark.gpu
+def test_cuda_delta_fused_back_to_back_calls(cuda):
+    """100 calls queued without a synchronisation, each with its own
+    scratch, all equal to the plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    old, new = _fused_pair(gen, 256, 65536, 8, cuda)
+    outs = [ops.delta_fused(old, new, max_changed=128) for _ in range(100)]
+    torch.cuda.synchronize()
+    for got in outs:
+        _assert_fused_equal(got, old, new, 128)
+
+
+@pytest.mark.gpu
+def test_cuda_delta_fused_graph_replays(cuda):
+    """One call captured in a CUDA graph and replayed 20 times over new
+    dirty rows each time: the memset node resets the ticket and the status
+    words before every replay."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    N, C, cap = 512, 2048, 64
+    old, new = _fused_pair(gen, N, C, 10, cuda)
+    ops.delta_fused(old, new, max_changed=cap)            # build, warm the allocator
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.delta_fused(old, new, max_changed=cap)
+    for i in range(20):
+        new.copy_(old)
+        rows = torch.randperm(N, generator=gen, device=cuda)[: 5 + 4 * i]
+        new[rows, i] ^= 0x33
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_fused_equal(out, old, new, cap)
+        assert int(out[2]) == 5 + 4 * i
+
+
+@pytest.mark.gpu
+def test_cuda_delta_fused_from_two_threads(cuda):
+    """Two host threads, each on its own stream, calling at once."""
+    import threading
+
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    grids = [_fused_pair(gen, 4096, 2048, 300, cuda), _fused_pair(gen, 256, 65536, 8, cuda)]
+    wants = [ref.fused_encode_ref(o, n, 128) for o, n in grids]
+    torch.cuda.synchronize()
+    errors = []
+
+    def work(k):
+        try:
+            stream = torch.cuda.Stream(device=cuda)
+            old, new = grids[k]
+            with torch.cuda.stream(stream):
+                outs = [ops.delta_fused(old, new, max_changed=128) for _ in range(20)]
+            stream.synchronize()
+            for got in outs:
+                for g, w in zip(got, wants[k]):
+                    if not torch.equal(g, w):
+                        errors.append(k)
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=work, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_pools,n_pairs,launches", [
+    (1, 4, 1), (2, 4, 1), (8, 4, 1), (2, 300, 2), (9, 300, 4),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_page_copy_stacked_over_pools(cuda, n_pools, n_pairs, launches, dtype):
+    """Several pools in one call: one launch for up to 8 pools and 256
+    pairs, chunks beyond, every pool bit-exact with its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(n_pools * 1000 + n_pairs)
+    P = 2 * n_pairs + 8
+    pools = [torch.randn((3, P, 16, 2, 64), generator=gen, device=cuda).to(dtype)
+             for _ in range(n_pools)]
+    perm = torch.randperm(P, generator=gen, device=cuda).tolist()
+    src, dst = perm[:n_pairs], perm[n_pairs : 2 * n_pairs]
+    wants = [ref.page_copy_stacked_ref(p, torch.tensor(src), torch.tensor(dst)) for p in pools]
+    ops.reset_launch_counts()
+    got = ops.page_copy_stacked(pools, src, dst)
+    torch.cuda.synchronize()
+    assert got is pools
+    for p, w in zip(pools, wants):
+        assert torch.equal(p, w)
+    assert ops.launch_counts()["page_copy_stacked"] == launches
+
+
+@pytest.mark.gpu
+def test_cuda_page_copy_unaligned_pages(cuda):
+    """Pages of 5 x 3 bytes are not 16-byte multiples: the byte path."""
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    pools = [torch.randint(0, 256, (2, 12, 5, 3), generator=gen, device=cuda, dtype=torch.uint8)
+             for _ in range(2)]
+    wants = [ref.page_copy_stacked_ref(p, torch.tensor([1, 2]), torch.tensor([7, 9]))
+             for p in pools]
+    ops.page_copy_stacked(pools, [1, 2], [7, 9])
+    torch.cuda.synchronize()
+    for p, w in zip(pools, wants):
+        assert torch.equal(p, w)

@@ -373,3 +373,32 @@ def test_scatter_pages_reinterprets_bf16_words():
     got = pool.gather_pages_device(np.array([5, 6]))
     for k in src:
         assert got[k].dtype == torch.bfloat16 and torch.equal(got[k], src[k])
+
+
+@pytest.mark.parametrize("cfg_name,n_pools", [("qwen3-14b-tiny", 2), ("gemma3-27b-tiny", 16)])
+def test_copy_pages_is_one_call_for_every_pool_of_a_shape(cfg_name, n_pools, monkeypatch):
+    """``copy_pages`` hands the K and V pools of every (stage, tag) to one
+    ``page_copy_stacked`` call per pool shape (one launch on the card for
+    up to 8 pools), and every pool gets the copies."""
+    pool = PagePool(get_config(cfg_name), num_pages=8, page_size=PSZ, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    for pools in (pool.pools_k, pool.pools_v):
+        for skey, tag in pool.attn_tags:
+            pools[skey][tag].normal_(generator=gen)
+    before = {(id(pools), s, t): pools[s][t].clone()
+              for pools in (pool.pools_k, pool.pools_v) for s, t in pool.attn_tags}
+    calls = []
+    real = t_kops.page_copy_stacked
+
+    def recording(pools, src, dst):
+        calls.append(len(pools))
+        return real(pools, src, dst)
+
+    monkeypatch.setattr(t_kops, "page_copy_stacked", recording)
+    pool.copy_pages([1, 2, 3], [5, 6, 7])
+    assert calls == [n_pools]
+    for (which, s, t), old in before.items():
+        pools = pool.pools_k if which == id(pool.pools_k) else pool.pools_v
+        want = old.clone()
+        want[:, [5, 6, 7]] = old[:, [1, 2, 3]]
+        assert torch.equal(pools[s][t], want)

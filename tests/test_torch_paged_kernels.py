@@ -110,6 +110,39 @@ def test_page_copy_stacked_matches_reference(N, P, psz, KVH, D, n, dtype):
     )
 
 
+@pytest.mark.parametrize("n_pools", [1, 2, 3, 9])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_page_copy_stacked_over_a_sequence_of_pools(n_pools, dtype):
+    """Several pools of one shape in one call (a pool's K and V of every
+    sublayer; 9 pools take two chunks on the card): each equals the JAX
+    ``page_copy_stacked`` applied to that pool alone."""
+    N, P, psz, KVH, D, n = 3, 12, 4, 2, 16, 5
+    pairs = [_pair(RNG.standard_normal((N, P, psz, KVH, D)) * 100, dtype) for _ in range(n_pools)]
+    perm = RNG.permutation(P)
+    src, dst = perm[:n].astype(np.int32), perm[n : 2 * n].astype(np.int32)
+    pools = [t for _, t in pairs]
+    got = ops.page_copy_stacked(pools, src, dst)
+    assert got is pools
+    for (jpool, _), pool in zip(pairs, pools):
+        want = jops.page_copy_stacked(jpool, jnp.asarray(src), jnp.asarray(dst))
+        np.testing.assert_array_equal(_to_np(pool), _to_np(want))
+
+
+@pytest.mark.parametrize("other", [
+    torch.zeros((2, 9, 4, 2, 8)),                        # another page count
+    torch.zeros((2, 8, 4, 2, 8), dtype=torch.bfloat16),  # another dtype
+    torch.zeros((3, 8, 4, 2, 8)),                        # another period count
+])
+def test_page_copy_stacked_refuses_mixed_pools(other):
+    pool = torch.arange(2 * 8 * 4 * 2 * 8, dtype=torch.float32).reshape(2, 8, 4, 2, 8)
+    before = pool.clone()
+    with pytest.raises(ValueError, match="pools differ"):
+        ops.page_copy_stacked([pool, other], [1, 2], [3, 4])
+    assert torch.equal(pool, before)
+    with pytest.raises(ValueError):
+        ops.page_copy_stacked([], [1], [3])
+
+
 def test_cpu_tensors_never_launch_the_serving_kernels():
     ops.reset_launch_counts()
     pool = torch.zeros((2, 8, 4, 2, 64))
