@@ -34,18 +34,34 @@ Phases:
    and ``page_copy_stacked`` over one pool and over the K and V pools in
    one launch, as a materialize runs it);
 6. serving path — ``Engine`` over the whole ``qwen3-14b`` config (random bf16
-   weights from a seed, 40 layers) and a 1024-page pool: prefill of a
-   2011-token prompt, decode, a delta checkpoint, four fast forks decoding
-   16 batched steps, a slow restore that must decode exactly what a fast
-   fork decodes; CoW block accounting and the delta image's dirty rows
-   checked, launches counted over this phase alone;
+   weights from a seed, 40 layers; the model is built once and shared with
+   phase 7) and a 1024-page pool: prefill of a 2011-token prompt, decode, a
+   delta checkpoint, four fast forks decoding 16 batched steps, a slow
+   restore that must decode exactly what a fast fork decodes; CoW block
+   accounting and the delta image's dirty rows checked, launches counted
+   over this phase alone;
+7. agent search — on the same model, its own 1024-page pool: (7a) a trunk
+   session on phase 6's prompt under ``StateManager(Sandbox(DeltaFS,
+   trunk), DeltaCR)``, (i) the serial ``MCTS`` over ``DecodeSearchTask``,
+   (ii) the parallel ``MCTS`` forking sibling leaves through a
+   ``SandboxTree`` into one ``Scheduler`` batch, (iii) ``decode_fanout`` of
+   one node; every fork copies no page, every write copies exactly the
+   shared part-full tail pages, a slow restore of each best leaf (and of a
+   delta chain under it, through ``delta_apply``) decodes what a fast fork
+   decodes, and the free pages return to their count before each search;
+   (7b) ``rollout_fanout`` of the ``scientific`` archetype's device sandbox
+   at widths 1, 4, 16 and 64 (no fork moves a chunk byte), a
+   ``checkpoint_burst`` of the 64 children, a ``tree.commit`` (the winner
+   restores byte-identical, the losers' storage is freed); launches counted
+   over this phase alone; then phase 6's B = 4 decode step under
+   ``torch.profiler`` (after phase 7, so the profiler does not slow it);
 4b. checkpoint profile — the C/R cell of phase 4 for 4 turns, turn 1's
    checkpoint and dump under ``torch.profiler``: the device time one
    checkpoint costs, by kernel, copy and memset;
 5. report — one JSON line per kernel, the ``{"kernels": [...]}`` line, the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
-Phases run in the order 1, 2, 3, 3b, 4, 6, 4b, 5.
+Phases run in the order 1, 2, 3, 3b, 4, 6, 7, 4b, 5.
 
 Any failure exits non-zero before the last line is printed.  The script
 imports nothing of JAX or of the JAX package.
@@ -675,9 +691,23 @@ SERVE_FORK_STEPS = 16
 SERVE_SLOW_STEPS = 4
 
 
+def build_serving_model(device, config: str = SERVE_CONFIG, seed: int = 0):
+    """The whole model of ``config`` on ``device`` with random weights from
+    a seeded ``torch.Generator``; phases 6 and 7 share one."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    model = Model(get_config(config), device=device)
+    model.init(torch.Generator(device=device).manual_seed(seed))
+    return model
+
+
 def run_serving_path(
     device,
     *,
+    model=None,
     config: str = SERVE_CONFIG,
     num_pages: int = SERVE_PAGES,
     page_size: int = SERVE_PAGE_SIZE,
@@ -694,26 +724,26 @@ def run_serving_path(
     restore of a paged session through ``Engine`` under
     ``StateManager(Sandbox(DeltaFS, trunk), DeltaCR)``; asserts the CoW
     block accounting, the dirty page rows of the delta image, and that a
-    slow restore decodes exactly what a fast fork decodes.  Returns the
-    metrics."""
+    slow restore decodes exactly what a fast fork decodes.  ``model`` is
+    built from ``config`` and ``seed`` unless given (``init_s`` then times
+    the pool and engine only).  Returns the metrics."""
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.core import DeltaCR, DeltaFS, DumpPolicy, Sandbox, StateManager
     from repro_torch.kernels import launch_counts
-    from repro_torch.models import Model
     from repro_torch.serve import Engine, PagePool, PagedSession
 
     on_card = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    cfg = get_config(config)
     rng = np.random.default_rng(seed)
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = Model(cfg, device=device)
-    model.init(torch.Generator(device=device).manual_seed(seed))
+    if model is None:
+        model = build_serving_model(device, config, seed)
+    cfg = model.cfg
+    config = cfg.name
     pool = PagePool(cfg, num_pages=num_pages, page_size=page_size,
                     max_pages_per_session=max_pages, device=device)
     eng = Engine(model, pool)
@@ -860,7 +890,6 @@ def run_serving_path(
     streams = [a + b for a, b in zip(streams, more)]
     if len({tuple(s) for s in streams}) != forks:
         raise AssertionError(f"fork streams did not diverge: {streams}")
-    profile = _profile_step(eng, kids) if on_card else None
 
     # -- 5: slow restore of c2 against a fast fork taken before the eviction
     fast = cr.restore(c2)[0]
@@ -926,7 +955,6 @@ def run_serving_path(
         "page_row_bytes": row_bytes,
         "max_memory_allocated": peak,
         "dense_vs_paged_max_abs_logit_diff": {"prefill": prefill_diff, "step1": step1_diff},
-        "decode_step_profile_b4": profile,
         "cow_copies": pool.stats.cow_copies,
         "dump_retries": health["dump_retries"],
     }
@@ -948,6 +976,35 @@ def _device_rows(prof) -> list:
             rows.append((e.key, us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     return rows
+
+
+def profile_decode_step(device, model, *, num_pages: int = SERVE_PAGES,
+                        page_size: int = SERVE_PAGE_SIZE, max_pages: int = SERVE_MAX_PAGES,
+                        prompt_len: int = SERVE_PROMPT, batch: int = SERVE_FORKS,
+                        seed: int = 0) -> dict:
+    """Phase 6's batched decode step under ``torch.profiler``, on a pool of
+    its own: phase 6's prompt prefilled, forked ``batch`` ways with
+    divergent pending tokens, one step to take the tail pages' CoW copies,
+    then the profiled step.  It runs after phase 7, since the profiler, once
+    used, slows the host's launches for the rest of the process."""
+    import numpy as np
+
+    from repro_torch.serve import Engine, PagePool
+
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    pool = PagePool(cfg, num_pages=num_pages, page_size=page_size,
+                    max_pages_per_session=max_pages, device=device)
+    eng = Engine(model, pool)
+    trunk = eng.new_session(rng.integers(0, cfg.vocab_size, size=prompt_len).tolist())
+    kids = [trunk.fork() for _ in range(batch)]
+    for kid, a in zip(kids, rng.choice(cfg.vocab_size, size=batch, replace=False).tolist()):
+        kid.tokens[-1] = int(a)
+    eng.step(kids)
+    profile = _profile_step(eng, kids)
+    for sess in kids + [trunk]:
+        sess.release()
+    return profile
 
 
 def _profile_step(eng, sessions, top: int = 8) -> dict:
@@ -973,6 +1030,461 @@ def _profile_step(eng, sessions, top: int = 8) -> dict:
         "kernel_launches": sum(r[2] for r in rows),
         "top": [[name[:60], ms, n] for name, ms, n in rows[:top]],
     }
+
+
+# ---------------------------------------------------------------------------
+# phase 7: agent search on the card at full qwen3-14b width
+# ---------------------------------------------------------------------------
+SEARCH_ITERATIONS = 12
+SEARCH_LEAVES = 4               # parallel driver: leaves per batch (the scheduler's max_batch)
+SEARCH_BATCH_WINDOW_MS = 2.0    # the scheduler's batching window, as benchmarks/fig6_decode_fanout.py
+SEARCH_K_TOKENS = 4             # tokens a search action decodes
+SEARCH_WIDTH = 3                # actions proposed (and children) per node
+SEARCH_GC_EVERY = 4
+SEARCH_SEED = 7
+FANOUT_CHILDREN = 4             # 7a (iii): children of one node, one action each
+FANOUT_TOKENS = 8
+GATE_TOKENS = 4                 # tokens the slow-restore gate decodes per session
+RL_ARCHETYPE = "scientific"     # 24 files of 128 KiB, a 32 MiB heap over 8 arrays
+RL_WIDTHS = (1, 4, 16, 64)
+
+
+def _percentiles(ms) -> dict:
+    import numpy as np
+
+    if not ms:
+        return {"n": 0}
+    return {"n": len(ms), "p50": float(np.percentile(ms, 50)), "p99": float(np.percentile(ms, 99))}
+
+
+def run_search_path(
+    device,
+    *,
+    model=None,
+    config: str = SERVE_CONFIG,
+    num_pages: int = SERVE_PAGES,
+    page_size: int = SERVE_PAGE_SIZE,
+    max_pages: int = SERVE_MAX_PAGES,
+    prompt_len: int = SERVE_PROMPT,
+    iterations: int = SEARCH_ITERATIONS,
+    rl_widths=RL_WIDTHS,
+    seed: int = 0,
+) -> dict:
+    """Phase 7: 7a decode search (serial and parallel MCTS over
+    ``DecodeSearchTask``, a scheduler fan-out) and 7b RL fan-out over device
+    sandboxes, with their gates.  Returns the metrics."""
+    import torch
+
+    if model is None:
+        model = build_serving_model(device, config, seed)
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = {"decode_search": run_decode_search(
+        device, model, num_pages=num_pages, page_size=page_size, max_pages=max_pages,
+        prompt_len=prompt_len, iterations=iterations, seed=seed)}
+    out["rl_fanout"] = run_rl_fanout(device, widths=rl_widths, seed=seed)
+    out["max_memory_allocated"] = (
+        torch.cuda.max_memory_allocated() if torch.device(device).type == "cuda" else None)
+    return out
+
+
+def run_decode_search(device, model, *, num_pages, page_size, max_pages, prompt_len,
+                      iterations, seed) -> dict:
+    """7a: a trunk session prefills phase 6's prompt under
+    ``StateManager(Sandbox(DeltaFS, trunk), DeltaCR)``; (i) the serial MCTS
+    (rollback in place), (ii) the parallel MCTS (sibling leaves forked
+    through a ``SandboxTree`` and decoded in one batch by a ``Scheduler``),
+    (iii) ``decode_fanout`` of one node of (ii).  Gates every fork (no page
+    copied), every CoW write (exactly the shared part-full tail pages), a
+    slow restore of each search's best leaf against a fast fork of it, and
+    the free pages after each search."""
+    import collections
+    import weakref
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (
+        DeltaCR, DeltaFS, DumpPolicy, Sandbox, SandboxTree, StateManager, reachability_gc,
+    )
+    from repro_torch.kernels import launch_counts
+    from repro_torch.search import MCTS, DecodeSearchTask, MCTSConfig, decode_fanout
+    from repro_torch.serve import Engine, PagePool, PagedSession, Scheduler, SchedulerConfig
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    cfg = model.cfg
+    psz = page_size
+    pool = PagePool(cfg, num_pages=num_pages, page_size=page_size,
+                    max_pages_per_session=max_pages, device=device)
+    eng = Engine(model, pool)
+    rng = np.random.default_rng(seed)
+    prompt = rng.integers(0, cfg.vocab_size, size=prompt_len).tolist()   # phase 6's prompt
+
+    # -- probes: batch widths and step times, CoW writes against their
+    #    prediction, forks
+    widths = collections.Counter()
+    step_ms = []
+    engine_step = eng.step
+
+    def counted_step(sessions):
+        widths[len(sessions)] += 1
+        sync()
+        t = time.perf_counter()
+        toks = engine_step(sessions)
+        sync()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return toks
+
+    eng.step = counted_step
+    written = weakref.WeakSet()          # sessions that have made their first write
+    first_writes = collections.Counter()  # copies made by each session's first write
+    materialize = pool.materialize
+
+    def checked_materialize(plans, **kw):
+        with pool.lock:
+            want = {}
+            for p in plans:
+                s = p.session
+                tail = int(s.table[s.seq_len // psz]) if s.seq_len // psz < len(s.table) else 0
+                want[id(p)] = int(s.seq_len % psz != 0 and tail != 0 and pool.refs[tail] > 1)
+            cow0 = pool.stats.cow_copies
+            n = materialize(plans, **kw)
+            if n != sum(want.values()) or pool.stats.cow_copies - cow0 != n:
+                raise AssertionError(f"a write copied {n} pages, the tails predict "
+                                     f"{sum(want.values())}")
+            for p in plans:
+                if p.session not in written and p.session.seq_len > 0:   # not a prefill
+                    written.add(p.session)
+                    first_writes[want[id(p)]] += 1
+            return n
+
+    pool.materialize = checked_materialize
+    fork_ms = []
+    forks = collections.Counter()
+    session_fork = PagedSession.fork
+
+    def checked_fork(sess):
+        """Every fork (template, dump, tree child, restore) under the pool
+        lock: the clone's table is its parent's, no page copied or taken."""
+        with pool.lock:
+            before = (pool.stats.copied_pages, pool.stats.fresh_allocs, pool.free_pages())
+            clone = session_fork(sess)
+            after = (pool.stats.copied_pages, pool.stats.fresh_allocs, pool.free_pages())
+            if after != before or not np.array_equal(clone.table, sess.table):
+                raise AssertionError(f"a fork copied or took pages: {before} -> {after}")
+            forks["forks"] += 1
+        return clone
+
+    dump_ms = []
+
+    def probe_cr(cr):
+        """Times every fast restore (a fork) and every dump's encode."""
+        restore, checkpoint = cr.restore, cr.checkpoint
+
+        def timed_restore(ckpt_id):
+            t = time.perf_counter()
+            state, path = restore(ckpt_id)
+            if path == "fast":
+                fork_ms.append((time.perf_counter() - t) * 1e3)
+            return state, path
+
+        def timed_checkpoint(state, ckpt_id, *args, **kw):
+            checkpoint(state, ckpt_id, *args, **kw)
+            fut = cr.dump_future(ckpt_id)
+            if fut is not None:
+                fut.add_done_callback(
+                    lambda f: f.exception() is None and dump_ms.append(f.result().wall_ms))
+
+        cr.restore, cr.checkpoint = timed_restore, timed_checkpoint
+
+    PagedSession.fork = checked_fork
+    try:
+        steps0 = eng.decode_steps
+        sync()
+        t = time.perf_counter()
+        trunk = eng.new_session(prompt)
+        sync()
+        prefill_ms = (time.perf_counter() - t) * 1e3
+        fs = DeltaFS()
+        cr = DeltaCR(
+            store=fs.store, async_warm=False, policy=DumpPolicy(mode="delta"),
+            restore_fn=lambda p: PagedSession.restore_from_payload(pool, p),
+        )
+        probe_cr(cr)
+        # each search runs on a fork of the trunk, which keeps the prompt's pages
+        sm = StateManager(Sandbox(fs, trunk.fork()), cr)
+        fs.write("task/prompt.txt", np.asarray(prompt, np.int32))
+        free0 = pool.free_pages()
+        # for reference: B = 1 steps with no dump in flight
+        idle = trunk.fork()
+        step_ms.clear()
+        for _ in range(SEARCH_K_TOKENS):
+            eng.step([idle])
+        idle.release()
+        idle_step_ms = statistics.median(step_ms)
+
+        def search(name, mcts_cfg, *, scheduler=None, tree=None):
+            task = DecodeSearchTask(eng, scheduler=scheduler, k_tokens=SEARCH_K_TOKENS,
+                                    width=SEARCH_WIDTH)
+            mcts = MCTS(sm, task, mcts_cfg, tree=tree, scheduler=scheduler)
+            fork_ms.clear()
+            widths.clear()
+            step_ms.clear()
+            dump_ms.clear()
+            sync()
+            st = mcts.run()
+            sync()
+            cr.wait_dumps()
+            return mcts, {
+                "driver": name, "nodes": st.nodes, "iterations": st.iterations,
+                "wall_s": st.wall_s, "nodes_per_s": st.nodes / st.wall_s,
+                "time_restore_s": st.time_restore_s, "time_checkpoint_s": st.time_checkpoint_s,
+                "time_action_s": st.time_action_s, "time_eval_s": st.time_eval_s,
+                "restores": st.restores, "fast_restores": st.fast_restores,
+                "slow_restores": st.slow_restores, "forks": st.forks,
+                "checkpoints": st.checkpoints, "parallel_batches": st.parallel_batches,
+                "fork_ms": _percentiles(fork_ms), "batch_widths": dict(sorted(widths.items())),
+                "step_ms": _percentiles(step_ms),
+                "dumps": len(dump_ms), "dump_ms": _percentiles(dump_ms),
+                "dump_ms_sum": sum(dump_ms),
+            }
+
+        def slow_restore_gate(ckpt_id) -> dict:
+            """The node's template evicted, its slow restore is byte-identical
+            to a fast fork taken before the eviction, and both decode the same
+            tokens and logits."""
+            fast, path = cr.restore(ckpt_id)
+            if path != "fast":                   # evicted by the search: now re-injected
+                fast.release()
+                fast, path = cr.restore(ckpt_id)
+            saved = {k: (v.clone() if isinstance(v, torch.Tensor) else np.array(v))
+                     for k, v in fast.dump_payload().items()}
+            if not cr.evict_template(ckpt_id):
+                raise AssertionError(f"no template to evict for {ckpt_id}")
+            sync()
+            t = time.perf_counter()
+            slow, path = cr.restore(ckpt_id)
+            sync()
+            slow_ms = (time.perf_counter() - t) * 1e3
+            if path != "slow":
+                raise AssertionError(f"restore of {ckpt_id} after eviction took the {path} path")
+            got = slow.dump_payload()
+            if sorted(got) != sorted(saved):
+                raise AssertionError("slow restore: payload keys differ")
+            for k, want in saved.items():
+                same = (torch.equal(got[k], want) if isinstance(want, torch.Tensor)
+                        else np.array_equal(np.asarray(got[k]), want))
+                if not same:
+                    raise AssertionError(f"slow restore of {ckpt_id}: {k} differs")
+            decoded = {}
+            for name, sess in (("slow", slow), ("fast", fast)):
+                toks, logits = [], []
+                for _ in range(GATE_TOKENS):
+                    toks += eng.step([sess])
+                    logits.append(torch.from_numpy(np.array(sess.extras["last_logits"])))
+                decoded[name] = (toks, logits)
+                sess.release()
+            if decoded["slow"][0] != decoded["fast"][0] or not all(
+                torch.equal(a, b) for a, b in zip(decoded["slow"][1], decoded["fast"][1])
+            ):
+                raise AssertionError(f"slow-restored and fast-forked {ckpt_id} decode differently")
+            return {"node": ckpt_id, "path": path, "slow_restore_ms": slow_ms,
+                    "tokens": decoded["slow"][0]}
+
+        def delta_chain_gate(ckpt_id) -> dict:
+            """A fork of the node dumped whole (a), decoded, dumped as a delta
+            against a (b): b's slow restore rebuilds it over a's generation with
+            delta_apply, and is held to the same gate."""
+            sess = cr.restore(ckpt_id)[0]
+            a = sm.allocate_ckpt_id()
+            cr.checkpoint(sess, a, None)
+            for _ in range(GATE_TOKENS):
+                eng.step([sess])
+            b = sm.allocate_ckpt_id()
+            cr.checkpoint(sess, b, a)
+            cr.wait_dumps()
+            sess.release()
+            if cr.dump_future(b).result().mode != "delta":
+                raise AssertionError("the chain's second dump is not a delta image")
+            apply0 = launch_counts()["delta_apply"]
+            gate = slow_restore_gate(b)
+            gate["delta_apply_launches"] = launch_counts()["delta_apply"] - apply0
+            if on_card and gate["delta_apply_launches"] <= 0:
+                raise AssertionError("the chain's slow restore launched no delta_apply")
+            for c in (b, a):
+                cr.drop_checkpoint(c)
+            return gate
+
+        def back_to_baseline(tree=None) -> int:
+            """Release the live forks, GC, drop the search's checkpoints and its
+            session: the trunk holds the only pages, as before the search.  The
+            next search starts on a new fork of the trunk."""
+            if tree is not None:
+                tree.release_all()
+            for node in sm.live_nodes():
+                node.expandable = False          # the search is over
+            reachability_gc(sm)
+            for node in sm.live_nodes():
+                sm.reclaim(node.ckpt_id)
+            cr.wait_dumps()
+            sm.sandbox.proc.release()
+            free = pool.free_pages()
+            if free != free0:
+                raise AssertionError(f"{free} free pages after the search, {free0} before it")
+            sm.sandbox.proc = trunk.fork()
+            return free
+
+        # (i) serial MCTS: rollback in place, template restores through sm.restore
+        mcts, serial = search("serial", MCTSConfig(
+            iterations=iterations, expand_width=SEARCH_WIDTH, value_isolation=False,
+            gc_every=SEARCH_GC_EVERY, seed=SEARCH_SEED))
+        serial["best_leaf"] = slow_restore_gate(mcts.best_leaf())
+        serial["delta_chain"] = delta_chain_gate(mcts.best_leaf())
+        back_to_baseline()
+
+        # (ii) parallel MCTS: sibling leaves forked and decoded in one batch
+        sched = Scheduler(eng, cr, SchedulerConfig(max_batch=SEARCH_LEAVES,
+                                                   batch_window_ms=SEARCH_BATCH_WINDOW_MS))
+        tree = SandboxTree(sm)
+        mcts, parallel = search("parallel", MCTSConfig(
+            iterations=iterations, parallel_leaves=SEARCH_LEAVES, expand_width=SEARCH_WIDTH,
+            gc_every=SEARCH_GC_EVERY, seed=SEARCH_SEED), scheduler=sched, tree=tree)
+        best = mcts.best_leaf()
+
+        # (iii) decode_fanout: children of one node, each forced to its own action
+        actions = rng.choice(cfg.vocab_size, size=FANOUT_CHILDREN, replace=False).tolist()
+        widths.clear()
+        sync()
+        t = time.perf_counter()
+        streams, _, res = decode_fanout(tree, best, FANOUT_CHILDREN, sched, FANOUT_TOKENS,
+                                        actions=actions)
+        sync()
+        fanout = {"node": best, "actions": actions, "streams": streams,
+                  "wall_ms": (time.perf_counter() - t) * 1e3,
+                  "fork_ms": {"p50": res.p50_ms, "p99": res.p99_ms},
+                  "batch_widths": dict(sorted(widths.items()))}
+        if len({tuple(s) for s in streams}) != FANOUT_CHILDREN:
+            raise AssertionError(f"fan-out streams did not diverge: {streams}")
+        parallel["best_leaf"] = slow_restore_gate(best)
+        free = back_to_baseline(tree)
+        n_steps = eng.decode_steps - steps0
+        health = sched.health()
+        sm.sandbox.proc.release()
+        trunk.release()
+        cr.shutdown()
+        return {
+            "config": cfg.name, "layers": cfg.n_layers, "prefill_ms": prefill_ms,
+            "idle_step_ms_b1": idle_step_ms,
+            "serial": serial, "parallel": parallel, "fanout": fanout,
+            "first_divergent_writes": {f"{k} copies": v for k, v in sorted(first_writes.items())},
+            "session_forks_checked": forks["forks"],
+            "decode_steps": n_steps, "free_pages": free, "dump_failures": health["dump_failures"],
+        }
+    finally:
+        PagedSession.fork = session_fork
+
+
+def run_rl_fanout(device, *, widths=RL_WIDTHS, seed: int = 0) -> dict:
+    """7b: the ``scientific`` archetype's sandbox (its heap a
+    ``CowTensorState`` on ``device``) forked by ``rollout_fanout`` at each
+    width, one ``SyntheticAgentTask`` action per rollout; then a
+    ``checkpoint_burst`` of the widest fan-out's children and a
+    ``tree.commit`` of one winner.  Gates: no fork moves a chunk byte,
+    every dump lands, the committed heap restores byte-identical (fast and
+    slow), the losers' storage is freed."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (
+        CowTensorState, DeltaCR, DeltaFS, Sandbox, SandboxTree, StateManager,
+    )
+    from repro_torch.kernels import launch_counts
+    from repro_torch.search import (
+        ARCHETYPES, SyntheticAgentTask, build_sandbox_state, checkpoint_burst, rollout_fanout,
+    )
+    from repro_torch.search.archetypes import Action
+
+    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    launches0 = dict(launch_counts())
+    spec = ARCHETYPES[RL_ARCHETYPE]
+    fs = DeltaFS()
+    proc = build_sandbox_state(spec, fs, seed=seed, device=device)
+    cr = DeltaCR(store=fs.store, restore_fn=lambda p: CowTensorState(p, device=device))
+    sm = StateManager(Sandbox(fs, proc), cr)
+    task = SyntheticAgentTask(spec)
+    sm.action_applier = task.replay_action
+    c0 = sm.checkpoint()
+    cr.wait_dumps()
+    tree = SandboxTree(sm)
+    rng = np.random.default_rng(seed + 1)
+    stats = fs.store.stats
+    out = {"archetype": spec.name, "heap_bytes": sum(proc.get(k).nbytes for k in proc.keys()),
+           "widths": {}}
+    kids = []
+    for n in widths:
+        actions = [Action(seed=int(rng.integers(1 << 31)), readonly=False) for _ in range(n)]
+        cr.wait_dumps()
+        before = dict(vars(stats))
+        after_forks = []
+
+        def rollout(child, i):
+            if i == 0:
+                after_forks.append(dict(vars(stats)))
+            task.apply_action(child, actions[i])
+            return task.evaluate(child)
+
+        last = n == widths[-1]
+        sync()
+        t = time.perf_counter()
+        rewards, res = rollout_fanout(tree, n, rollout, ckpt_id=c0, teardown=not last)
+        sync()
+        if after_forks[0] != before:
+            raise AssertionError(f"fan-out of {n} moved chunk bytes: {after_forks[0]} vs {before}")
+        out["widths"][n] = {"fork_ms": {"p50": res.p50_ms, "p99": res.p99_ms},
+                            "forks_per_s": res.forks_per_s,
+                            "rollouts_ms": (time.perf_counter() - t) * 1e3}
+        if last:
+            kids = sorted(tree.live_sandboxes(), key=lambda s: s.sandbox_id)
+            winner = kids[int(np.argmax(rewards))]
+    ids = [sm.allocate_ckpt_id() for _ in kids]
+    parents = [tree.base_ckpt(k.sandbox_id) for k in kids]
+    futs, submit_ms = checkpoint_burst(cr, [k.proc for k in kids], ids, parents, wait=True)
+    images = [f.result() for f in futs]          # every dump landed, or this raises
+    out["burst"] = {"children": len(kids), "submit_ms": submit_ms,
+                    "modes": dict(collections.Counter(img.mode for img in images))}
+    saved = {k: winner.proc.get(k).clone() for k in winner.proc.keys()}
+    phys = stats.physical_bytes
+    final = tree.commit(winner.sandbox_id)
+    cr.wait_dumps()
+    freed = phys - stats.physical_bytes
+    if freed <= 0:
+        raise AssertionError(f"commit freed no loser storage ({phys} -> {stats.physical_bytes} B)")
+    # the trunk's fast restore onto the committed node, and a slow one
+    cr.evict_template(final)
+    slow, path = cr.restore(final)
+    if path != "slow":
+        raise AssertionError(f"restore of the committed node took the {path} path")
+    for name, state in (("fast", sm.sandbox.proc), ("slow", slow)):
+        for k, want in saved.items():
+            if not torch.equal(state.get(k), want):
+                raise AssertionError(f"{name} restore of the committed node: {k} differs")
+    slow.release()
+    for i in ids:
+        cr.drop_checkpoint(i)
+    cr.wait_dumps()
+    health = cr.health()
+    if health["dump_failures"]:
+        raise AssertionError(f"{health['dump_failures']} dumps failed")
+    out["commit"] = {"node": final, "loser_bytes_freed": freed,
+                     "physical_bytes_after": stats.physical_bytes}
+    tree.release_all()
+    sm.sandbox.proc.release()
+    cr.shutdown()
+    out["launches"] = {k: v - launches0.get(k, 0) for k, v in launch_counts().items()}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1328,9 +1840,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     say(f"[4 main path] device memory still allocated: {torch.cuda.memory_allocated()} B")
 
+    # -- the whole qwen3-14b, built once for phases 6 and 7
+    t0 = time.perf_counter()
+    model = build_serving_model(device)
+    torch.cuda.synchronize()
+    say(f"[6 serving] {SERVE_CONFIG} built in {time.perf_counter() - t0:.2f} s: "
+        f"{model.param_count()} parameters, {torch.cuda.memory_allocated()} B allocated")
+
     # -- phase 6: the serving path (launch counts taken over exactly this run)
     reset_launch_counts()
-    serving = run_serving_path(device)
+    serving = run_serving_path(device, model=model)
     serve_launches = launch_counts()
     say(f"[6 serving] launches {json.dumps(serve_launches)}")
     for k in ("paged_attention", "page_copy_stacked", "delta_diff", "delta_apply"):
@@ -1342,6 +1861,31 @@ def main() -> int:
     say(f"[6 serving] {json.dumps(serving)} (card: {card})")
     for k in ("page_copy", "page_copy_stacked", "paged_attention"):
         launches[k] = serve_launches[k]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 7: agent search (launch counts taken over exactly this run)
+    reset_launch_counts()
+    search = run_search_path(device, model=model)
+    search_launches = launch_counts()
+    say(f"[7 search] launches {json.dumps(search_launches)}")
+    for k in ("paged_attention", "page_copy_stacked", "delta_diff", "delta_apply"):
+        if search_launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the search path")
+    steps = search["decode_search"]["decode_steps"]
+    if search_launches["paged_attention"] != model.cfg.n_layers * steps:
+        fail(f"paged_attention launched {search_launches['paged_attention']} times over "
+             f"{steps} decode steps of {model.cfg.n_layers} layers")
+    for part in ("decode_search", "rl_fanout"):
+        say(f"[7 search] {part}: {json.dumps(search[part])} (card: {card})")
+    say(f"[7 search] peak device memory {search['max_memory_allocated']} B (card: {card})")
+    for k, n in search_launches.items():
+        launches[k] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[6 serving] B = {SERVE_FORKS} decode step profiled after phase 7: "
+        f"{json.dumps(profile_decode_step(device, model))} (card: {card})")
+    del model
     gc.collect()
     torch.cuda.empty_cache()
 

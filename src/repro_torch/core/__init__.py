@@ -10,10 +10,13 @@
   :class:`~repro_torch.core.deltacr.CowArrayState` host state,
 * :class:`~repro_torch.core.state_manager.StateManager` — the coupled
   (filesystem, session state) checkpoint/restore protocol,
+* :class:`~repro_torch.core.sandbox_tree.SandboxTree` — N concurrent live
+  sandboxes forked from the snapshot tree (Fork-Explore-Commit),
+* :mod:`~repro_torch.core.gc` — reachability and recency snapshot GC,
 * :mod:`~repro_torch.core.convert` — state to and from numpy dicts,
 * :mod:`~repro_torch.core.faults` — deterministic fault injection.
 
-GC, the sandbox tree and the persistence plane are not ported yet.
+The persistence plane is not ported yet.
 """
 from .chunk_store import (
     ChunkCorruptionError,
@@ -62,6 +65,8 @@ from .policy import DumpPolicy, ModeSelector, dirty_fraction_hint
 from .image_store import ImageRef, ImageStore, ImageStoreStats
 from .npd import InferenceProxy, ProxyRequest
 from .state_manager import CheckpointError, Sandbox, SnapshotNode, StateManager
+from .sandbox_tree import SandboxTree, SandboxTreeStats
+from .gc import reachability_gc, recency_gc
 
 __all__ = [
     "ChunkCorruptionError",
@@ -117,4 +122,8 @@ __all__ = [
     "Sandbox",
     "SnapshotNode",
     "StateManager",
+    "SandboxTree",
+    "SandboxTreeStats",
+    "reachability_gc",
+    "recency_gc",
 ]

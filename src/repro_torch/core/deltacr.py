@@ -259,6 +259,9 @@ class CowArrayState:
         self._shared: Dict[str, "_SharedCell"] = {
             k: _SharedCell(refs=1) for k in self._arrays
         }
+        # Guards the (array, cell) pairs: an async warm privatizes on the
+        # warm thread while the owner forks, writes or releases.
+        self._lock = threading.RLock()
         self.hot_keys = tuple(hot_keys)
         self.restore_hook = restore_hook
         self.cow_faults = 0           # inline (critical-path) CoW copies
@@ -276,16 +279,17 @@ class CowArrayState:
 
     # -- writes (CoW) ----------------------------------------------------
     def _privatize(self, key: str, *, warm: bool = False) -> None:
-        cell = self._shared[key]
-        with cell.lock:
-            if cell.refs > 1:
-                cell.refs -= 1
-                self._arrays[key] = self._arrays[key].copy()
-                self._shared[key] = _SharedCell(refs=1)
-                if warm:
-                    self.warmed_copies += 1
-                else:
-                    self.cow_faults += 1
+        with self._lock:
+            cell = self._shared[key]
+            with cell.lock:
+                if cell.refs > 1:
+                    cell.refs -= 1
+                    self._arrays[key] = self._arrays[key].copy()
+                    self._shared[key] = _SharedCell(refs=1)
+                    if warm:
+                        self.warmed_copies += 1
+                    else:
+                        self.cow_faults += 1
 
     def _note_write(self, key: str) -> None:
         if self._dirty is not None:
@@ -293,12 +297,13 @@ class CowArrayState:
 
     def set(self, key: str, value: np.ndarray) -> None:
         self._note_write(key)
-        if key in self._arrays:
-            self._privatize(key)
-            self._arrays[key] = np.asarray(value)
-        else:
-            self._arrays[key] = np.asarray(value)
-            self._shared[key] = _SharedCell(refs=1)
+        with self._lock:
+            if key in self._arrays:
+                self._privatize(key)
+                self._arrays[key] = np.asarray(value)
+            else:
+                self._arrays[key] = np.asarray(value)
+                self._shared[key] = _SharedCell(refs=1)
 
     def mutate(self, key: str, fn: Callable[[np.ndarray], None]) -> None:
         """In-place mutation with a CoW fault if the array is shared."""
@@ -335,11 +340,15 @@ class CowArrayState:
     # -- ForkableState ---------------------------------------------------
     def fork(self) -> "CowArrayState":
         clone = CowArrayState.__new__(CowArrayState)
-        clone._arrays = dict(self._arrays)
-        clone._shared = dict(self._shared)
-        for key, cell in self._shared.items():
-            with cell.lock:
-                cell.refs += 1
+        with self._lock:
+            # one consistent snapshot of the (array, cell) pairs, and the
+            # refs taken on exactly the cells the clone holds
+            clone._arrays = dict(self._arrays)
+            clone._shared = dict(self._shared)
+            for cell in clone._shared.values():
+                with cell.lock:
+                    cell.refs += 1
+        clone._lock = threading.RLock()
         clone.hot_keys = self.hot_keys
         clone.restore_hook = self.restore_hook
         clone.cow_faults = 0
@@ -350,14 +359,15 @@ class CowArrayState:
         return clone
 
     def release(self) -> None:
-        if self._released:
-            return
-        self._released = True
-        for key, cell in self._shared.items():
-            with cell.lock:
-                cell.refs -= 1
-        self._arrays.clear()
-        self._shared.clear()
+        with self._lock:
+            if self._released:
+                return
+            self._released = True
+            for cell in self._shared.values():
+                with cell.lock:
+                    cell.refs -= 1
+            self._arrays.clear()
+            self._shared.clear()
 
     def warm(self) -> None:
         for key in self.hot_keys:
@@ -449,6 +459,9 @@ class CowTensorState:
             k: as_device_tensor(v, self.device) for k, v in (tensors or {}).items()
         }
         self._shared: Dict[str, _SharedCell] = {k: _SharedCell(refs=1) for k in self._tensors}
+        # Guards the (tensor, cell) pairs: an async warm privatizes on the
+        # warm thread while the owner forks, writes or releases.
+        self._lock = threading.RLock()
         self.hot_keys = tuple(hot_keys)
         self.restore_hook = restore_hook
         self.cow_faults = 0           # inline (critical-path) CoW clones
@@ -467,16 +480,17 @@ class CowTensorState:
 
     # -- writes (CoW) ----------------------------------------------------
     def _privatize(self, key: str, *, warm: bool = False) -> None:
-        cell = self._shared[key]
-        with cell.lock:
-            if cell.refs > 1:
-                cell.refs -= 1
-                self._tensors[key] = self._tensors[key].clone()
-                self._shared[key] = _SharedCell(refs=1)
-                if warm:
-                    self.warmed_copies += 1
-                else:
-                    self.cow_faults += 1
+        with self._lock:
+            cell = self._shared[key]
+            with cell.lock:
+                if cell.refs > 1:
+                    cell.refs -= 1
+                    self._tensors[key] = self._tensors[key].clone()
+                    self._shared[key] = _SharedCell(refs=1)
+                    if warm:
+                        self.warmed_copies += 1
+                    else:
+                        self.cow_faults += 1
 
     def _note_write(self, key: str) -> None:
         if self._dirty is not None:
@@ -484,11 +498,13 @@ class CowTensorState:
 
     def set(self, key: str, value: Any) -> None:
         self._note_write(key)
-        if key in self._tensors:
-            self._privatize(key)
-        else:
-            self._shared[key] = _SharedCell(refs=1)
-        self._tensors[key] = as_device_tensor(value, self.device)
+        value = as_device_tensor(value, self.device)
+        with self._lock:
+            if key in self._tensors:
+                self._privatize(key)
+            else:
+                self._shared[key] = _SharedCell(refs=1)
+            self._tensors[key] = value
 
     def mutate(self, key: str, fn: Callable[[torch.Tensor], None]) -> None:
         """In-place mutation with a CoW fault if the tensor is shared."""
@@ -523,11 +539,15 @@ class CowTensorState:
     def fork(self) -> "CowTensorState":
         clone = CowTensorState.__new__(CowTensorState)
         clone.device = self.device
-        clone._tensors = dict(self._tensors)
-        clone._shared = dict(self._shared)
-        for cell in self._shared.values():
-            with cell.lock:
-                cell.refs += 1
+        with self._lock:
+            # one consistent snapshot of the (tensor, cell) pairs, and the
+            # refs taken on exactly the cells the clone holds
+            clone._tensors = dict(self._tensors)
+            clone._shared = dict(self._shared)
+            for cell in clone._shared.values():
+                with cell.lock:
+                    cell.refs += 1
+        clone._lock = threading.RLock()
         clone.hot_keys = self.hot_keys
         clone.restore_hook = self.restore_hook
         clone.cow_faults = 0
@@ -538,14 +558,15 @@ class CowTensorState:
         return clone
 
     def release(self) -> None:
-        if self._released:
-            return
-        self._released = True
-        for cell in self._shared.values():
-            with cell.lock:
-                cell.refs -= 1
-        self._tensors.clear()
-        self._shared.clear()
+        with self._lock:
+            if self._released:
+                return
+            self._released = True
+            for cell in self._shared.values():
+                with cell.lock:
+                    cell.refs -= 1
+            self._tensors.clear()
+            self._shared.clear()
 
     def warm(self) -> None:
         for key in self.hot_keys:

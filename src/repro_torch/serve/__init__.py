@@ -1,6 +1,6 @@
 """Serving runtime of the port: the paged copy-on-write KV pool, forkable
-sessions and the prefill/decode engine.  The scheduler waits for the
-persistence plane (``core.persist``) to be ported."""
+sessions, the prefill/decode engine and the continuous-batching scheduler
+(without its persistence plane, which waits for ``core.persist``)."""
 from .engine import Engine, SamplingParams
 from .kvcache import (
     CowCorruptionError,
@@ -10,6 +10,7 @@ from .kvcache import (
     PoolStats,
     WritePlan,
 )
+from .scheduler import Scheduler, SchedulerConfig
 
 __all__ = [
     "CowCorruptionError",
@@ -19,5 +20,7 @@ __all__ = [
     "PagedSession",
     "PoolStats",
     "SamplingParams",
+    "Scheduler",
+    "SchedulerConfig",
     "WritePlan",
 ]

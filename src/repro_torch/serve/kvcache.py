@@ -536,29 +536,37 @@ class PagedSession:
 
     # ------------------------------------------------------- ForkableState
     def fork(self) -> "PagedSession":
-        self.pool.incref(self.active_pages())
-        clone = PagedSession(
-            self.pool,
-            table=self.table.copy(),
-            seq_len=self.seq_len,
-            extras=dict(self.extras),     # leaves alias (rebound, never mutated)
-            tokens=list(self.tokens),
-        )
+        # under the pool lock: an async warm of this session swaps table
+        # entries under it, and the refs must be taken on the pages copied
+        with self.pool.lock:
+            self.pool.incref(self.active_pages())
+            clone = PagedSession(
+                self.pool,
+                table=self.table.copy(),
+                seq_len=self.seq_len,
+                extras=dict(self.extras),     # leaves alias (rebound, never mutated)
+                tokens=list(self.tokens),
+            )
         clone._dirty_pages = None if self._dirty_pages is None else set(self._dirty_pages)
         clone._dirty_extras = None if self._dirty_extras is None else set(self._dirty_extras)
         clone._dirty_base = self._dirty_base
         return clone
 
     def release(self) -> None:
-        if self._released:
-            return
-        self._released = True
-        self.pool.decref(self.active_pages())
+        with self.pool.lock:
+            if self._released:
+                return
+            self._released = True
+            self.pool.decref(self.active_pages())
 
     def warm(self) -> None:
         """Pre-privatize the tail page off the critical path (async-warm);
-        ``ensure_writable(warm=True)`` accounts ``pool.warm_copies``."""
-        self.ensure_writable(warm=True)
+        ``ensure_writable(warm=True)`` accounts ``pool.warm_copies``.  A
+        session released before its warm runs is left alone: its table
+        still names pages whose refs it gave back."""
+        with self.pool.lock:
+            if not self._released:
+                self.ensure_writable(warm=True)
 
     def _flat_extras(self) -> Dict[str, Any]:
         """Extras as flat arrays; nested dict keys are joined with ``::``

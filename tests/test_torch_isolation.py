@@ -39,6 +39,8 @@ def test_port_sources_are_covered():
     assert {
         "delta_fused.py", "delta_diff.py", "delta_apply.py", "deltacr.py", "chip_smoke.py",
         "page_copy.py", "paged_attention.py", "kvcache.py", "engine.py", "model.py", "layers.py",
+        "sandbox_tree.py", "gc.py", "scheduler.py", "mcts.py", "fanout.py", "archetypes.py",
+        "decode_task.py",
     } <= names
 
 
@@ -46,7 +48,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     code = (
         "import sys; import repro_torch, repro_torch.core, repro_torch.kernels;"
         "import repro_torch.core.convert, repro_torch.configs, repro_torch.models;"
-        "import repro_torch.serve;"
+        "import repro_torch.serve, repro_torch.search;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes')];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -68,6 +70,24 @@ def test_tensor_state_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         state_from_numpy({})
     assert CowTensorState({"x": torch.zeros(4)}, device="cpu").device.type == "cpu"
+
+
+def test_sandbox_state_defaults_to_the_card():
+    """``build_sandbox_state`` without a device builds its heap on the
+    card; without one it raises before writing a file, never falls back to
+    the CPU."""
+    from repro_torch.core import DeltaFS
+    from repro_torch.search import ARCHETYPES, build_sandbox_state
+
+    spec = ARCHETYPES["tools"]
+    if torch.cuda.is_available():
+        assert build_sandbox_state(spec, DeltaFS()).device.type == "cuda"
+        return
+    fs = DeltaFS()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_sandbox_state(spec, fs)
+    assert fs.keys() == []
+    assert build_sandbox_state(spec, fs, device="cpu").device.type == "cpu"
 
 
 def test_kernel_wrappers_raise_for_wrong_inputs():
