@@ -53,21 +53,37 @@ Phases:
    at widths 1, 4, 16 and 64 (no fork moves a chunk byte), a
    ``checkpoint_burst`` of the 64 children, a ``tree.commit`` (the winner
    restores byte-identical, the losers' storage is freed); launches counted
-   over this phase alone; then phase 6's B = 4 decode step under
-   ``torch.profiler`` (after phase 7, so the profiler does not slow it);
+   over this phase alone;
+8. persistence — (8a) the C/R cell of phase 4 at full size for 4 turns under
+   ``mode="delta"``, a ``PersistencePlane`` save (``full_every=8``: one full
+   save, then deltas) into a fresh temporary directory after each, and one
+   more turn for reference; the state is freed and a fresh process
+   ``recover``s the root on the card: every restored tensor and file
+   against the writer's blake2b digests, the trunk restored by
+   ``delta_apply`` over its anchored parent generation, and the next turn's
+   checkpoint on the kernel path with the writer's device→host bytes and
+   image; (8b) on phase 6's model, a ``Scheduler(persist_path=...)`` over a
+   1024-page pool: two sessions on phase 6's prompt, a few steps, one
+   suspended and drained so the manifest commits, 8 greedy tokens of a fast
+   fork of it; scheduler, DeltaCR and pool freed, then
+   ``Scheduler.recover`` over a new pool and engine, and the resumed session
+   must decode the same 8 tokens; launches counted over each part (the
+   recovering process's added to 8a's), then phase 6's B = 4 step profiled;
 4b. checkpoint profile — the C/R cell of phase 4 for 4 turns, turn 1's
    checkpoint and dump under ``torch.profiler``: the device time one
    checkpoint costs, by kernel, copy and memset;
 5. report — one JSON line per kernel, the ``{"kernels": [...]}`` line, the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
-Phases run in the order 1, 2, 3, 3b, 4, 6, 7, 4b, 5.
+Phases run in the order 1, 2, 3, 3b, 4, 6, 7, 8, 4b, 5.
 
 Any failure exits non-zero before the last line is printed.  The script
 imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import gc
 import json
 import statistics
@@ -1490,6 +1506,150 @@ def run_rl_fanout(device, *, widths=RL_WIDTHS, seed: int = 0) -> dict:
 # ---------------------------------------------------------------------------
 # phase 4: the main path at real size
 # ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class CRCell:
+    """The C/R cell's shapes: the KV cache of one session of the JAX
+    package's qwen3-14b config at full width, a float32 heap and small
+    DeltaFS files.  Each agent turn writes ``tokens_per_turn`` new tokens
+    into every KV tensor, rewrites 1% of the heap's rows and one file.
+    Phases 4 and 8a drive it."""
+
+    layers: int = QWEN3_14B_LAYERS
+    kv_heads: int = QWEN3_14B_KV_HEADS
+    head_dim: int = QWEN3_14B_HEAD_DIM
+    session_tokens: int = SESSION_TOKENS
+    prefix_tokens: int = PREFIX_TOKENS
+    tokens_per_turn: int = TOKENS_PER_TURN
+    heap_bytes: int = HEAP_BYTES
+    n_files: int = N_FILES
+    chunk_bytes: int = CHUNK_BYTES
+
+    @property
+    def heap_rows(self) -> int:
+        return self.heap_bytes // self.chunk_bytes
+
+    @property
+    def heap_touch(self) -> int:
+        return max(1, int(round(self.heap_rows * HEAP_ROW_FRAC)))
+
+    @property
+    def n_tensors(self) -> int:
+        return 2 * self.layers + 1
+
+    @property
+    def want_dirty(self) -> int:
+        """The dirty rows of one turn's delta image."""
+        tokens_per_row = self.chunk_bytes // (self.kv_heads * self.head_dim * 2)
+        return 2 * self.layers * (self.tokens_per_turn // tokens_per_row) + self.heap_touch
+
+    def build(self, device, gen, rng):
+        """The cell's state on ``device`` under ``StateManager(Sandbox(DeltaFS,
+        CowTensorState), DeltaCR(mode="delta"))``; returns ``(sm, cr)``."""
+        import numpy as np
+        import torch
+
+        from repro_torch.core import (
+            CowTensorState,
+            DeltaCR,
+            DeltaFS,
+            DumpPolicy,
+            Sandbox,
+            StateManager,
+        )
+
+        token_bytes = self.kv_heads * self.head_dim * 2
+        assert self.chunk_bytes % token_bytes == 0
+        tokens_per_row = self.chunk_bytes // token_bytes
+        assert self.prefix_tokens % tokens_per_row == 0
+        assert self.tokens_per_turn % tokens_per_row == 0
+        tensors = {}
+        shape = (self.kv_heads, self.head_dim)
+        for layer in range(self.layers):
+            for kind in ("k", "v"):
+                kv = torch.zeros((self.session_tokens, *shape), dtype=torch.bfloat16,
+                                 device=device)
+                kv[: self.prefix_tokens] = torch.randn(
+                    (self.prefix_tokens, *shape), generator=gen, device=device
+                ).to(torch.bfloat16)
+                tensors[f"layer{layer}/{kind}"] = kv
+        tensors["heap"] = torch.randn(self.heap_bytes // 4, generator=gen, device=device)
+
+        fs = DeltaFS(chunk_bytes=self.chunk_bytes)   # DeltaCR dumps in the store's chunks
+        for i in range(self.n_files):
+            size = int(rng.integers(64, 1024))
+            fs.write(f"repo/file{i}.py", rng.integers(0, 2**31, size=size, dtype=np.int32))
+        proc = CowTensorState(tensors, device=device)
+        del tensors
+        cr = DeltaCR(
+            store=fs.store,
+            restore_fn=lambda p: CowTensorState(p, device=device),
+            policy=DumpPolicy(mode="delta"),
+            chunk_bytes=self.chunk_bytes,
+        )
+        return StateManager(Sandbox(fs, proc), cr), cr
+
+    def turn(self, sm, index: int, gen, rng) -> None:
+        """Agent turn ``index`` (from 0): its new tokens land after the
+        prefix and the ``index`` turns before it."""
+        import numpy as np
+        import torch
+
+        device = gen.device
+        pos = self.prefix_tokens + index * self.tokens_per_turn
+        n = self.tokens_per_turn
+        for layer in range(self.layers):
+            for kind in ("k", "v"):
+                new_kv = torch.randn(
+                    (n, self.kv_heads, self.head_dim), generator=gen, device=device
+                ).to(torch.bfloat16)
+                sm.sandbox.proc.mutate(
+                    f"layer{layer}/{kind}", lambda t, v=new_kv: t[pos : pos + n].copy_(v)
+                )
+        touched = torch.randperm(self.heap_rows, generator=gen, device=device)[: self.heap_touch]
+        floats_per_row = self.chunk_bytes // 4
+        offs = touched * floats_per_row + torch.randint(
+            0, floats_per_row - 16, (self.heap_touch,), generator=gen, device=device
+        )
+        cols = offs[:, None] + torch.arange(16, device=device)[None, :]
+        vals = torch.randn((self.heap_touch, 16), generator=gen, device=device)
+        sm.sandbox.proc.mutate(
+            "heap", lambda t: t.index_put_((cols.reshape(-1),), vals.reshape(-1))
+        )
+        f = f"repo/file{int(rng.integers(self.n_files))}.py"
+        sm.sandbox.fs.write(f, rng.integers(0, 2**31, size=512, dtype=np.int32))
+
+    def timed_turn(self, sm, cr, index: int, gen, rng, sync, *, profile: bool = False) -> dict:
+        """Turn ``index``, then its checkpoint with the dump waited for
+        (under ``torch.profiler`` with ``profile``); asserts the kernel path:
+        a delta image of exactly the turn's dirty rows, every tensor diffed
+        by the kernels, none on the full path.  Returns the checkpoint id,
+        its call and dump ms, its device→host bytes, the image and the
+        profile (or None)."""
+        self.turn(sm, index, gen, rng)
+        sync()
+        kernel_before, full_before = cr.stats.kernel_keys, cr.stats.full_keys
+        d2h_before = cr.pipeline.d2h_bytes
+        prof = _start_device_profile() if profile else None
+        t0 = time.perf_counter()
+        c = sm.checkpoint()
+        t1 = time.perf_counter()
+        cr.wait_dumps()
+        sync()
+        t2 = time.perf_counter()
+        image = cr.dump_future(c).result()
+        if image.mode != "delta" or image.dirtied_chunks != self.want_dirty:
+            raise AssertionError(f"checkpoint {c}: a {image.mode} image of {image.dirtied_chunks} "
+                                 f"dirty rows, expected delta of {self.want_dirty}")
+        if (cr.stats.kernel_keys - kernel_before != self.n_tensors
+                or cr.stats.full_keys != full_before):
+            raise AssertionError(
+                f"checkpoint {c}: kernel_keys +{cr.stats.kernel_keys - kernel_before}, full_keys "
+                f"+{cr.stats.full_keys - full_before}; expected +{self.n_tensors} / +0")
+        return {"ckpt": c, "checkpoint_ms": (t1 - t0) * 1e3, "dump_ms": (t2 - t0) * 1e3,
+                "d2h_bytes": cr.pipeline.d2h_bytes - d2h_before, "image": image,
+                "device": None if prof is None else _stop_device_profile(prof, index)}
+
+
 def run_main_path(
     device,
     *,
@@ -1514,54 +1674,17 @@ def run_main_path(
     import numpy as np
     import torch
 
-    from repro_torch.core import (
-        CowTensorState,
-        DeltaCR,
-        DeltaFS,
-        DumpPolicy,
-        Sandbox,
-        StateManager,
-    )
-
     on_card = torch.device(device).type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     gen = torch.Generator(device=device).manual_seed(seed)
     rng = np.random.default_rng(seed)
-    token_bytes = kv_heads * head_dim * 2
-    assert chunk_bytes % token_bytes == 0
-    tokens_per_row = chunk_bytes // token_bytes
-    assert prefix_tokens % tokens_per_row == 0 and tokens_per_turn % tokens_per_row == 0
-    kv_rows_per_turn = tokens_per_turn // tokens_per_row
-    heap_rows = heap_bytes // chunk_bytes
-    heap_touch = max(1, int(round(heap_rows * HEAP_ROW_FRAC)))
-
-    tensors = {}
-    for layer in range(layers):
-        for kind in ("k", "v"):
-            kv = torch.zeros(
-                (session_tokens, kv_heads, head_dim), dtype=torch.bfloat16, device=device
-            )
-            kv[:prefix_tokens] = torch.randn(
-                (prefix_tokens, kv_heads, head_dim), generator=gen, device=device
-            ).to(torch.bfloat16)
-            tensors[f"layer{layer}/{kind}"] = kv
-    tensors["heap"] = torch.randn(heap_bytes // 4, generator=gen, device=device)
-
-    fs = DeltaFS(chunk_bytes=chunk_bytes)     # DeltaCR dumps in the store's chunks
-    for i in range(n_files):
-        size = int(rng.integers(64, 1024))
-        fs.write(f"repo/file{i}.py", rng.integers(0, 2**31, size=size, dtype=np.int32))
-    proc = CowTensorState(tensors, device=device)
-    del tensors
-    cr = DeltaCR(
-        store=fs.store,
-        restore_fn=lambda p: CowTensorState(p, device=device),
-        policy=DumpPolicy(mode="delta"),
-        chunk_bytes=chunk_bytes,
-    )
-    sm = StateManager(Sandbox(fs, proc), cr)
-    n_tensors = 2 * layers + 1
-    want_dirty = 2 * layers * kv_rows_per_turn + heap_touch
+    cell = CRCell(layers=layers, kv_heads=kv_heads, head_dim=head_dim,
+                  session_tokens=session_tokens, prefix_tokens=prefix_tokens,
+                  tokens_per_turn=tokens_per_turn, heap_bytes=heap_bytes, n_files=n_files,
+                  chunk_bytes=chunk_bytes)
+    sm, cr = cell.build(device, gen, rng)
+    n_tensors = cell.n_tensors
+    want_dirty = cell.want_dirty
 
     def snapshot():
         state = sm.sandbox.proc
@@ -1589,66 +1712,23 @@ def run_main_path(
     torch.cuda.reset_peak_memory_stats() if torch.device(device).type == "cuda" else None
     ckpts = [sm.checkpoint()]
     cr.wait_dumps()
-    pos = prefix_tokens
     for turn in range(turns):
-        # -- the agent's turn: 256 new tokens in every KV tensor, ~1% of the
-        #    heap rows rewritten, one file rewritten
-        for layer in range(layers):
-            for kind in ("k", "v"):
-                new_kv = torch.randn(
-                    (tokens_per_turn, kv_heads, head_dim), generator=gen, device=device
-                ).to(torch.bfloat16)
-                sm.sandbox.proc.mutate(
-                    f"layer{layer}/{kind}",
-                    lambda t, v=new_kv, p=pos: t[p : p + tokens_per_turn].copy_(v),
-                )
-        pos += tokens_per_turn
-        touched = torch.randperm(heap_rows, generator=gen, device=device)[:heap_touch]
-        floats_per_row = chunk_bytes // 4
-        offs = touched * floats_per_row + torch.randint(
-            0, floats_per_row - 16, (heap_touch,), generator=gen, device=device
-        )
-        cols = offs[:, None] + torch.arange(16, device=device)[None, :]
-        vals = torch.randn((heap_touch, 16), generator=gen, device=device)
-        sm.sandbox.proc.mutate(
-            "heap", lambda t: t.index_put_((cols.reshape(-1),), vals.reshape(-1))
-        )
-        f = f"repo/file{int(rng.integers(n_files))}.py"
-        sm.sandbox.fs.write(f, rng.integers(0, 2**31, size=512, dtype=np.int32))
-        sync()
-        # -- checkpoint: fork + async dump; then wait for the dump to land
-        kernel_before, full_before = cr.stats.kernel_keys, cr.stats.full_keys
-        d2h_before = cr.pipeline.d2h_bytes
-        prof = _start_device_profile() if on_card and turn == profile_turn else None
-        t0 = time.perf_counter()
-        c = sm.checkpoint()
-        t1 = time.perf_counter()
-        cr.wait_dumps()
-        sync()
-        t2 = time.perf_counter()
-        ckpts.append(c)
-        d2h.append(cr.pipeline.d2h_bytes - d2h_before)
-        image = cr.dump_future(c).result()
-        if prof is None:
-            ckpt_ms.append((t1 - t0) * 1e3)
-            dump_ms.append((t2 - t0) * 1e3)
+        # -- the agent's turn (256 new tokens in every KV tensor, ~1% of the
+        #    heap rows and one file rewritten), its checkpoint and dump
+        out = cell.timed_turn(sm, cr, turn, gen, rng, sync,
+                              profile=on_card and turn == profile_turn)
+        ckpts.append(out["ckpt"])
+        d2h.append(out["d2h_bytes"])
+        image = out["image"]
+        if out["device"] is None:
+            ckpt_ms.append(out["checkpoint_ms"])
+            dump_ms.append(out["dump_ms"])
             stages.append((image.wall_ms, image.encode_ms, image.drain_ms, image.commit_ms,
                            image.stream_windows))
         else:
-            device_per_ckpt = _stop_device_profile(prof, turn)
-        if image.mode != "delta":
-            raise AssertionError(f"checkpoint {c}: mode {image.mode}, expected delta")
-        if image.dirtied_chunks != want_dirty:
-            raise AssertionError(
-                f"checkpoint {c}: {image.dirtied_chunks} dirtied chunks, expected {want_dirty}"
-            )
-        if cr.stats.kernel_keys - kernel_before != n_tensors or cr.stats.full_keys != full_before:
-            raise AssertionError(
-                f"checkpoint {c}: kernel_keys +{cr.stats.kernel_keys - kernel_before}, "
-                f"full_keys +{cr.stats.full_keys - full_before}; expected +{n_tensors} / +0"
-            )
+            device_per_ckpt = out["device"]
         if turn in (turns - 4, turns - 2):
-            saved[c] = snapshot()
+            saved[out["ckpt"]] = snapshot()
     first = cr.dump_future(ckpts[0]).result()
     if first.mode != "delta" or cr.stats.full_keys != n_tensors:
         raise AssertionError(f"first image: mode {first.mode}, full_keys {cr.stats.full_keys}")
@@ -1685,7 +1765,7 @@ def run_main_path(
     cr.shutdown()
     return {
         "state_bytes": int(sum(t.nbytes for t in saved[slow_c][0].values())),
-        "kv_tensors": 2 * layers,
+        "kv_tensors": 2 * cell.layers,
         "files": n_files,
         "checkpoints": len(ckpts),
         "dirtied_chunks_per_checkpoint": want_dirty,
@@ -1762,6 +1842,402 @@ def run_auto_turns(device, turns: int = 3) -> dict:
     modes = [cr.dump_future(c).result().mode for c in range(1, 2 + turns)]
     cr.shutdown()
     return {"auto_modes": modes}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: persistence on the card
+# ---------------------------------------------------------------------------
+PERSIST_TURNS = 4              # 8a: turns of the C/R cell, a plane save after each
+PERSIST_FULL_EVERY = 8         # 8a: PersistencePlane(full_every=8): a full save, then deltas
+PERSIST_CHILD_TIMEOUT_S = 600  # 8a: the recovering process's time limit
+WARM_STEPS = 4                 # 8b: batched steps of both sessions before the suspend
+WARM_TOKENS = 8                # 8b: greedy tokens compared across the teardown
+
+
+@contextlib.contextmanager
+def _spans(sync, targets):
+    """Sum the wall time of every call of each ``(owner, name)`` in
+    ``targets`` while the block runs (each call ends in ``sync()``); yields
+    the sums in ms by name and puts the originals back after."""
+    spent = {name: 0.0 for _, name in targets}
+    saved = [(owner, name, getattr(owner, name)) for owner, name in targets]
+    for owner, name, fn in saved:
+        def wrapper(*a, _fn=fn, _name=name, **kw):
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                sync()
+                spent[_name] += (time.perf_counter() - t) * 1e3
+
+        setattr(owner, name, wrapper)
+    try:
+        yield spent
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def _turn_rngs(device, seed: int, index: int):
+    """Turn ``index``'s own generators, so a process that recovers the state
+    can replay that turn's writes exactly."""
+    import numpy as np
+    import torch
+
+    return (torch.Generator(device=device).manual_seed(seed + 1 + index),
+            np.random.default_rng(seed + 1 + index))
+
+
+def _state_digests(sm) -> dict:
+    """blake2b of every tensor of the session state and every file."""
+    import hashlib
+
+    import numpy as np
+
+    from repro_torch.core.deltafs import host_bytes
+
+    proc, fs = sm.sandbox.proc, sm.sandbox.fs
+    out = {k: hashlib.blake2b(host_bytes(proc.get(k)).tobytes(), digest_size=16).hexdigest()
+           for k in sorted(proc.keys())}
+    out.update({f"file:{k}": hashlib.blake2b(np.ascontiguousarray(fs.read(k)).tobytes(),
+                                             digest_size=16).hexdigest()
+                for k in sorted(fs.keys())})
+    return out
+
+
+def _image_digest(image) -> str:
+    """blake2b over an image's entries: names, shapes, dtypes, pads and
+    chunk digests (every entry must carry its digests)."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+    for name, meta in sorted(image.entries.items()):
+        if len(meta.digests) != len(meta.chunk_ids):
+            raise AssertionError(f"image entry {name} carries no chunk digests")
+        h.update(f"{name}|{meta.shape}|{meta.dtype}|{meta.trailing_pad}|".encode())
+        h.update(b"".join(meta.digests))
+    return h.hexdigest()
+
+
+def _turn_numbers(out: dict) -> dict:
+    """A timed turn's numbers, its image by digest."""
+    return {"ckpt": out["ckpt"], "checkpoint_ms": out["checkpoint_ms"],
+            "dump_ms": out["dump_ms"], "d2h_bytes": out["d2h_bytes"],
+            "image": _image_digest(out["image"])}
+
+
+def run_persist_path(device, *, cell=None, turns: int = PERSIST_TURNS,
+                     full_every: int = PERSIST_FULL_EVERY, seed: int = 0) -> dict:
+    """8a: the C/R cell for ``turns`` turns under ``mode="delta"``, a
+    ``PersistencePlane`` save into a fresh temporary directory after each;
+    then one more turn, whose device→host bytes and image the recovering
+    process must reproduce.  The state is torn down, and a fresh process
+    (``persist_child``) recovers the root on ``device`` and checks it.
+    Returns the numbers of both processes; the directory is removed."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import PersistencePlane
+    from repro_torch.core import persist
+
+    cell = cell if cell is not None else CRCell()
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_persist_")
+    try:
+        root = str(Path(tmp) / "root")
+        t0 = time.perf_counter()
+        sm, cr = cell.build(device, torch.Generator(device=device).manual_seed(seed),
+                            np.random.default_rng(seed))
+        sm.checkpoint()
+        cr.wait_dumps()
+        sync()
+        build_s = time.perf_counter() - t0
+        plane = PersistencePlane(root, full_every=full_every)
+        turn_out, saves = [], []
+        for index in range(turns):
+            turn_out.append(_turn_numbers(cell.timed_turn(
+                sm, cr, index, *_turn_rngs(device, seed, index), sync)))
+            d2h_before = cr.pipeline.d2h_bytes
+            parts = [(persist, "_snapshot_doc_v2"), (persist, "_write_pack")]
+            with _spans(sync, parts) as spent:
+                t = time.perf_counter()
+                seq = plane.save(sm=sm)
+                save_ms = (time.perf_counter() - t) * 1e3
+            if cr.pipeline.d2h_bytes != d2h_before:
+                raise AssertionError(f"save {seq} moved {cr.pipeline.d2h_bytes - d2h_before} "
+                                     "device bytes")
+            st = plane.last_save_stats
+            saves.append({"seq": seq, "kind": st["kind"], "save_ms": save_ms,
+                          "doc_build_ms": spent["_snapshot_doc_v2"],
+                          "pack_write_ms": spent["_write_pack"],
+                          "bytes_written": st["bytes_written"], "pack_bytes": st["pack_bytes"],
+                          "doc_bytes": st["doc_bytes"], "new_chunks": st["new_chunks"]})
+        if [x["kind"] for x in saves] != ["full"] + ["delta"] * (turns - 1):
+            raise AssertionError(f"save kinds {[x['kind'] for x in saves]}")
+        want = {"root": root, "device": str(device), "cell": dataclasses.asdict(cell),
+                "seed": seed, "turn": turns, "current": sm.current,
+                "digests": _state_digests(sm)}
+        # the same next turn, here: what the recovered state must reproduce
+        want["next_turn"] = _turn_numbers(cell.timed_turn(
+            sm, cr, turns, *_turn_rngs(device, seed, turns), sync))
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        cr.shutdown()
+        del sm, cr, plane
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        spec = str(Path(tmp) / "want.json")
+        Path(spec).write_text(json.dumps(want))
+        code = (f"import sys; sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]; "
+                f"import chip_smoke; chip_smoke.persist_child({spec!r})")
+        t = time.perf_counter()
+        try:
+            child = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), text=True,
+                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                   timeout=PERSIST_CHILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired as exc:
+            raise AssertionError(f"recovering process killed after {exc.timeout} s") from exc
+        child_s = time.perf_counter() - t
+        if child.returncode != 0:
+            raise AssertionError(f"recovering process exited {child.returncode}:\n"
+                                 f"{child.stdout[-4000:]}\n{child.stderr[-4000:]}")
+        recovered = json.loads(child.stdout.strip().splitlines()[-1])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {
+        "build_s": build_s,
+        "turns": turn_out,
+        "saves": saves,
+        "next_turn": want["next_turn"],
+        "max_memory_allocated": peak,
+        "child_process_s": child_s,
+        "recovered": recovered,
+    }
+
+
+def persist_child(spec_path: str) -> None:
+    """8a's recovering process: ``recover`` the root of ``spec_path`` on its
+    device and check (i) every restored tensor and file against the
+    writer's digests, (ii) how the trunk came back and that ``delta_apply``
+    ran over the anchored parent generation, (iii) that the next turn's
+    checkpoint takes the kernel path and moves the device→host bytes, and
+    makes the image, that the writer's same turn did.  Prints its numbers
+    as one JSON line; raises on any failed check."""
+    import torch
+
+    from repro_torch.core import DumpPolicy, StateManager, persist, recover
+    from repro_torch.core.delta_pipeline import DeltaDumpPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    want = json.loads(Path(spec_path).read_text())
+    device = torch.device(want["device"])
+    cell = CRCell(**want["cell"])
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    parts = [(persist, "_fold_chain"), (persist, "_load_chunks_v2"),
+             (persist, "_read_pack_chunk"),
+             (DeltaDumpPipeline, "rebuild_generation"), (StateManager, "restore")]
+    reset_launch_counts()
+    with _spans(sync, parts) as spent:
+        t = time.perf_counter()
+        rec = recover(want["root"], device=device, policy=DumpPolicy(mode="delta"))
+        sync()
+        recover_ms = (time.perf_counter() - t) * 1e3
+    recover_launches = dict(launch_counts())
+    sm, cr = rec.state_manager, rec.deltacr
+    anchors = cr.pipeline.anchored_ids()
+    # (i) the restored bytes, against the writer's digests
+    got = _state_digests(sm)
+    if got != want["digests"]:
+        bad = sorted(k for k in set(got) | set(want["digests"])
+                     if got.get(k) != want["digests"].get(k))
+        raise AssertionError(f"recovered state differs in {len(bad)} entries: {bad[:8]}")
+    # (ii) the trunk's restore scattered over its anchored parent generation
+    image = cr.images.image_for(rec.current)
+    if rec.current != want["current"] or rec.trunk_restore_mode != "slow":
+        raise AssertionError(f"trunk at {rec.current} by {rec.trunk_restore_mode!r}, expected "
+                             f"{want['current']} by 'slow'")
+    if image.parent_id not in anchors:
+        raise AssertionError(f"parent image {image.parent_id} not among anchors {anchors}")
+    if on_card and recover_launches["delta_apply"] <= 0:
+        raise AssertionError("the restore over the anchored parent launched no delta_apply")
+    # (iii) the next turn's checkpoint, on the kernel path
+    reset_launch_counts()
+    turn = _turn_numbers(cell.timed_turn(
+        sm, cr, want["turn"], *_turn_rngs(device, want["seed"], want["turn"]), sync))
+    turn_launches = dict(launch_counts())
+    ref = want["next_turn"]
+    if turn["d2h_bytes"] != ref["d2h_bytes"] or turn["image"] != ref["image"]:
+        raise AssertionError(f"post-recovery turn: {turn['d2h_bytes']} B device→host, image "
+                             f"{turn['image']}; the writer's turn: {ref['d2h_bytes']} B, "
+                             f"{ref['image']}")
+    if on_card and turn_launches["delta_fused"] <= 0:
+        raise AssertionError("the post-recovery checkpoint launched no delta_fused")
+    # one more turn, for information: the first dump's cost against a warm one
+    second = _turn_numbers(cell.timed_turn(
+        sm, cr, want["turn"] + 1, *_turn_rngs(device, want["seed"], want["turn"] + 1), sync))
+    turns_launches = dict(launch_counts())
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    cr.shutdown()
+    print(json.dumps({
+        "seq": rec.seq,
+        "trunk_restore_mode": rec.trunk_restore_mode,
+        "current": rec.current,
+        "anchors": anchors,
+        "restore_parent_image": image.parent_id,
+        "recover_ms": recover_ms,
+        "read_ms": recover_ms - spent["rebuild_generation"] - spent["restore"],
+        "read_docs_ms": spent["_fold_chain"],
+        "read_packs_ms": spent["_load_chunks_v2"],
+        "read_packs_io_ms": spent["_read_pack_chunk"],
+        "anchor_rebuild_ms": spent["rebuild_generation"],
+        "trunk_restore_ms": spent["restore"],
+        "recover_launches": recover_launches,
+        "checkpoint_ms": turn["checkpoint_ms"],
+        "dump_ms": turn["dump_ms"],
+        "d2h_bytes": turn["d2h_bytes"],
+        "second_turn": {k: second[k] for k in ("checkpoint_ms", "dump_ms", "d2h_bytes")},
+        "turn_launches": turn_launches,
+        "launches": {k: recover_launches[k] + turns_launches[k] for k in recover_launches},
+        "tensors_checked": sum(1 for k in got if not k.startswith("file:")),
+        "files_checked": sum(1 for k in got if k.startswith("file:")),
+        "max_memory_allocated": peak,
+    }), flush=True)
+
+
+def run_warm_pool_path(
+    device,
+    *,
+    model=None,
+    config: str = SERVE_CONFIG,
+    num_pages: int = SERVE_PAGES,
+    page_size: int = SERVE_PAGE_SIZE,
+    max_pages: int = SERVE_MAX_PAGES,
+    prompt_len: int = SERVE_PROMPT,
+    steps: int = WARM_STEPS,
+    tokens: int = WARM_TOKENS,
+    seed: int = 0,
+) -> dict:
+    """8b: a ``Scheduler(persist_path=...)`` over a fresh pool serves two
+    sessions on phase 6's prompt, suspends one and drains, so the manifest
+    commits; a fast fork of the suspended session decodes ``tokens`` greedy
+    tokens.  Scheduler, DeltaCR and pool are then freed, and
+    ``Scheduler.recover`` over a new pool and engine (same weights) must
+    resume the session to decode the same tokens.  Returns the numbers."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import DeltaCR
+    from repro_torch.serve import (
+        Engine,
+        PagePool,
+        PagedSession,
+        SamplingParams,
+        Scheduler,
+        SchedulerConfig,
+    )
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    if model is None:
+        model = build_serving_model(device, config, seed)
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    prompt = rng.integers(0, cfg.vocab_size, size=prompt_len).tolist()   # phase 6's prompt
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+
+    def new_pool():
+        return PagePool(cfg, num_pages=num_pages, page_size=page_size,
+                        max_pages_per_session=max_pages, device=device)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_warm_pool_")
+    try:
+        root = str(Path(tmp) / "warm-pool")
+        pool = new_pool()
+        eng = Engine(model, pool)
+        cr = DeltaCR(template_pool_size=8,
+                     restore_fn=lambda p: PagedSession.restore_from_payload(pool, p))
+        sched = Scheduler(eng, cr, SchedulerConfig(max_batch=4, persist_path=root))
+        a = sched.submit(prompt, SamplingParams())
+        b = sched.submit(prompt, SamplingParams())
+        for _ in range(steps):
+            sched.step()
+        before = list(sched.handles[a].session.tokens)
+        sched.suspend(a)                           # coalesced: the eviction waits for the dump
+        ckpt = sched.handles[a].ckpt_id
+        fork, path = cr.restore(ckpt)               # the template is still live: a fast fork
+        if path != "fast":
+            raise AssertionError(f"fork of the suspended session took the {path} path")
+        want = [int(eng.step([fork])[0]) for _ in range(tokens)]
+        fork.release()
+        cr.wait_dumps()
+        t = time.perf_counter()
+        if sched._drain_suspends() < 1:
+            raise AssertionError("the landed dump evicted no template")
+        drain_ms = (time.perf_counter() - t) * 1e3
+        health = sched.health()
+        save = dict(sched.plane.last_save_stats)
+        if health.get("persist_saves") != 1 or save["kind"] != "full":
+            raise AssertionError(f"plane after the drain: {health.get('persist_saves')} saves, "
+                                 f"{save.get('kind')}")
+        steps_before = eng.decode_steps
+        sched.finish(b)
+        cr.shutdown()
+        del sched, cr, eng, pool, fork
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        freed_to = torch.cuda.memory_allocated() if on_card else None
+
+        pool2 = new_pool()
+        eng2 = Engine(model, pool2)
+        sync()
+        t = time.perf_counter()
+        sched2 = Scheduler.recover(
+            eng2, root, restore_fn=lambda p: PagedSession.restore_from_payload(pool2, p))
+        sync()
+        recover_ms = (time.perf_counter() - t) * 1e3
+        handles = sorted((h.sid, h.state) for h in sched2.handles.values())
+        if handles != [(a, "suspended")]:
+            raise AssertionError(f"recovered handles {handles}, expected [({a}, 'suspended')]")
+        t = time.perf_counter()
+        sched2.resume(a)
+        sync()
+        resume_ms = (time.perf_counter() - t) * 1e3
+        if list(sched2.handles[a].session.tokens) != before:
+            raise AssertionError("the resumed session's tokens differ from the suspended one's")
+        got = [int(sched2.step()[a]) for _ in range(tokens)]
+        if got != want:
+            raise AssertionError(f"resumed session decoded {got}, the fast fork {want}")
+        peak = torch.cuda.max_memory_allocated() if on_card else None
+        sched2.finish(a)
+        sched2.cr.shutdown()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {
+        "config": cfg.name,
+        "prompt_tokens": prompt_len,
+        "session_tokens": len(before),
+        "tokens": got,
+        "save": save,
+        "drain_and_save_ms": drain_ms,
+        "memory_after_teardown": freed_to,
+        "recover_ms": recover_ms,
+        "resume_ms": resume_ms,
+        "decode_steps": steps_before + eng2.decode_steps,
+        "layers": cfg.n_layers,
+        "max_memory_allocated": peak,
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -1883,7 +2359,46 @@ def main() -> int:
         launches[k] += n
     gc.collect()
     torch.cuda.empty_cache()
-    say(f"[6 serving] B = {SERVE_FORKS} decode step profiled after phase 7: "
+
+    # -- phase 8: persistence on the card (launch counts reset before each part)
+    t8 = time.perf_counter()
+    reset_launch_counts()
+    try:
+        persist = run_persist_path(device)
+    except AssertionError as exc:
+        fail(f"phase 8a: {exc}")
+    writer = launch_counts()
+    child = persist["recovered"]["launches"]
+    say(f"[8a persist] launches: writer {json.dumps(writer)}; "
+        f"recovering process {json.dumps(child)}")
+    for k in ("delta_fused", "delta_diff"):
+        if writer[k] <= 0:
+            fail(f"kernel {k} was not launched by 8a's turns")
+    for k in ("delta_apply", "delta_fused"):
+        if child[k] <= 0:
+            fail(f"kernel {k} was not launched by 8a's recovering process")
+    say(f"[8a persist] {json.dumps(persist)} (card: {card})")
+    for k in launches:
+        launches[k] += writer[k] + child[k]
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    try:
+        warm = run_warm_pool_path(device, model=model)
+    except AssertionError as exc:
+        fail(f"phase 8b: {exc}")
+    warm_launches = launch_counts()
+    say(f"[8b warm pool] launches {json.dumps(warm_launches)}")
+    if warm_launches["paged_attention"] != warm["layers"] * warm["decode_steps"]:
+        fail(f"paged_attention launched {warm_launches['paged_attention']} times over "
+             f"{warm['decode_steps']} decode steps of {warm['layers']} layers")
+    say(f"[8b warm pool] {json.dumps(warm)} (card: {card})")
+    for k, n in warm_launches.items():
+        launches[k] += n
+    say(f"[8 persist] phase 8 ran {time.perf_counter() - t8:.1f} s (card: {card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[6 serving] B = {SERVE_FORKS} decode step profiled after phases 7 and 8: "
         f"{json.dumps(profile_decode_step(device, model))} (card: {card})")
     del model
     gc.collect()

@@ -14,9 +14,9 @@
   sandboxes forked from the snapshot tree (Fork-Explore-Commit),
 * :mod:`~repro_torch.core.gc` — reachability and recency snapshot GC,
 * :mod:`~repro_torch.core.convert` — state to and from numpy dicts,
+* :mod:`~repro_torch.core.persist` — the crash-consistent persistence
+  plane (the JAX package's on-disk format; recovery onto the card),
 * :mod:`~repro_torch.core.faults` — deterministic fault injection.
-
-The persistence plane is not ported yet.
 """
 from .chunk_store import (
     ChunkCorruptionError,
@@ -64,6 +64,18 @@ from .convert import state_from_numpy, state_to_numpy
 from .policy import DumpPolicy, ModeSelector, dirty_fraction_hint
 from .image_store import ImageRef, ImageStore, ImageStoreStats
 from .npd import InferenceProxy, ProxyRequest
+from .persist import (
+    DigestIndex,
+    PersistencePlane,
+    RecoveredState,
+    RecoverError,
+    compact_state,
+    find_chunk_by_digest,
+    load_store,
+    recover,
+    save_state,
+    save_store,
+)
 from .state_manager import CheckpointError, Sandbox, SnapshotNode, StateManager
 from .sandbox_tree import SandboxTree, SandboxTreeStats
 from .gc import reachability_gc, recency_gc
@@ -118,6 +130,16 @@ __all__ = [
     "ImageStoreStats",
     "InferenceProxy",
     "ProxyRequest",
+    "DigestIndex",
+    "PersistencePlane",
+    "RecoveredState",
+    "RecoverError",
+    "compact_state",
+    "find_chunk_by_digest",
+    "load_store",
+    "recover",
+    "save_state",
+    "save_store",
     "CheckpointError",
     "Sandbox",
     "SnapshotNode",

@@ -104,6 +104,10 @@ def _grid_device(*grids: Any) -> torch.device:
     return torch.device("cpu")
 
 
+def _upload_grid(grid: np.ndarray, device: torch.device) -> torch.Tensor:
+    """One host→device copy of a rebuilt generation grid."""
+    return torch.from_numpy(grid).to(device)
+
 
 __all__ = [
     "ChunkedView",
@@ -383,6 +387,66 @@ class DeltaDumpPipeline:
                 self._retire_locked(rec, releasable)
         for rec in releasable:
             rec.release()
+
+    def anchored_ids(self) -> List[int]:
+        """Image ids with a registered generation, oldest-first (LRU order).
+
+        The persistence plane records these as the *generation-cache
+        anchors*: after a restart, :meth:`rebuild_generation` re-materializes
+        them from store chunks so the first post-recovery dumps are already
+        O(delta)-chained instead of paying a full-path dump each."""
+        with self._lock:
+            return list(self._gens.keys())
+
+    def rebuild_generation(self, image: Any, device: Any = None) -> bool:
+        """Re-register an image's generation from its store chunks.
+
+        Restart recovery: builds a byte-grid for every grid-aligned tensor
+        of ``image`` and registers them as a diff/restore base (anchor-less
+        — the grids own their memory).  On ``device`` (the card unless the
+        caller asks for the CPU) each grid is a uint8 tensor, one
+        host→device copy per tensor, so the first restore after a restart
+        runs ``delta_apply`` and the first dump the delta kernels there; on
+        the CPU the grids stay numpy, as host state's are.  A chunk that
+        cannot be read skips its tensor; a failed upload raises.  Returns
+        False when no tensor was rebuildable (nothing registered)."""
+        from .deltacr import resolve_device
+
+        dev = resolve_device(device)
+        store = self.store
+        views: Dict[str, ChunkedView] = {}
+        for name, meta in image.entries.items():
+            n = len(meta.chunk_ids)
+            if n == 0:
+                continue
+            try:
+                row_bytes = len(store.get(meta.chunk_ids[0]))
+                if row_bytes == 0 or not self._rows_match(meta, row_bytes):
+                    continue
+                grid = np.empty((n, row_bytes), np.uint8)
+                for i, cid in enumerate(meta.chunk_ids):
+                    grid[i] = np.frombuffer(store.get(cid), np.uint8)
+            except Exception:
+                # a quarantined/corrupt chunk must not abort recovery: this
+                # tensor just misses the rebuilt anchor — the first dump
+                # against it pays the full path, which is correct, only slow
+                continue
+            # outside the except: an upload that fails must not leave a host
+            # grid behind, which would send the next dump off the card
+            base = grid if dev.type == "cpu" else _upload_grid(grid, dev)
+            views[name] = ChunkedView(
+                shape=meta.shape,
+                dtype=meta.dtype,
+                nbytes=meta.nbytes,
+                chunk_bytes=row_bytes,
+                n_chunks=n,
+                trailing_pad=meta.trailing_pad,
+                grid_fn=lambda g=base: g,
+            )
+        if not views:
+            return False
+        self.register(image.image_id, views, anchor=None)
+        return True
 
     def evict(self, image_id: int) -> None:
         releasable: list = []

@@ -143,6 +143,10 @@ class TensorMeta:
     # fallback).
     digests: Tuple[bytes, ...] = ()
     trailing_pad: int = 0
+    # Non-empty for the JAX package's shard-native dumps: per-dim tile
+    # counts of its TilePlan.  The port has no sharded dump path yet and
+    # only carries the field, so a persisted root round-trips unchanged.
+    tile_grid: Tuple[int, ...] = ()
 
     @property
     def nbytes(self) -> int:

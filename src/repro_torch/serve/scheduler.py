@@ -1,11 +1,8 @@
 """Continuous-batching scheduler over forkable sessions, with dump QoS.
 
-Ported from the JAX package's ``serve/scheduler.py``, without its
-persistence plane: that waits for ``core/persist.py`` (ROADMAP item A5).
-``SchedulerConfig`` keeps ``persist_path`` and its sibling fields with the
-reference's defaults, and a non-``None`` ``persist_path``,
-``Scheduler.persist_now`` and ``Scheduler.recover`` raise
-``NotImplementedError`` rather than run without persistence.
+Ported from the JAX package's ``serve/scheduler.py``.  ``Scheduler.recover``
+rebuilds the warm pool on the engine's device: the recovered image store's
+generation anchors land there (``core.persist.recover``).
 
 Production serving runs many concurrent agent sessions with different
 lifecycles (prefill, decode, suspended-awaiting-tool, finished).  The
@@ -49,6 +46,8 @@ from concurrent.futures import TimeoutError as FuturesTimeoutError
 from typing import Dict, List, Optional, Tuple
 
 from ..core.deltacr import DeltaCR
+from ..core.persist import PersistencePlane
+from ..core.persist import recover as recover_state
 from ..core.policy import DumpPolicy
 from ..core.stream import DumpGate
 
@@ -56,11 +55,6 @@ from .engine import Engine, SamplingParams
 from .kvcache import PagedSession
 
 __all__ = ["Scheduler", "SchedulerConfig", "SessionHandle"]
-
-_NO_PERSIST = (
-    "the scheduler's persistence plane needs core/persist.py, which is not "
-    "ported yet (ROADMAP item A5)"
-)
 
 
 @dataclasses.dataclass
@@ -96,12 +90,18 @@ class SchedulerConfig:
     # whatever policy the DeltaCR was built with.
     dump_policy: Optional[DumpPolicy] = None
     # -- persistence plane -----------------------------------------------
-    # In the JAX package a set path commits a crash-consistent manifest
-    # snapshot whenever a coalesced suspend drain lands dumps.  The port has
-    # no persistence plane yet: a set path raises NotImplementedError.  The
-    # plane's cadence fields (snapshots kept, full and compaction intervals)
-    # come with it.
+    # When set, the scheduler commits a crash-consistent manifest snapshot
+    # (suspended-session map + DeltaCR image store) every time a coalesced
+    # suspend drain lands dumps — a warm pool of parked agents survives
+    # process death and is re-admitted via Scheduler.recover().
     persist_path: Optional[str] = None
+    keep_snapshots: int = 4
+    # Full-snapshot anchor cadence: saves in between are O(delta) docs
+    # folded onto the last anchor at recovery (1 = every save is full).
+    persist_full_every: int = 8
+    # When > 0, compact the manifest (fresh full snapshot + history
+    # truncation + pack sweep) every this many saves.
+    persist_compact_every: int = 0
 
 
 @dataclasses.dataclass
@@ -136,8 +136,6 @@ class Scheduler:
         # whichever generate() caller grabs this lock services every
         # waiting request (continuous batching by thread-stealing)
         self._step_lock = threading.Lock()
-        if self.cfg.persist_path is not None:
-            raise NotImplementedError(_NO_PERSIST)
         if self.cfg.dump_timeout_policy not in ("defer", "raise"):
             raise ValueError(
                 f"unknown dump_timeout_policy {self.cfg.dump_timeout_policy!r}"
@@ -161,6 +159,14 @@ class Scheduler:
                 demote_max_ms=self.cfg.dump_demote_max_ms,
             )
             self.cr.attach_dump_gate(self.gate)
+        self.plane: Optional[PersistencePlane] = None
+        if self.cfg.persist_path is not None:
+            self.plane = PersistencePlane(
+                self.cfg.persist_path,
+                keep_snapshots=self.cfg.keep_snapshots,
+                full_every=self.cfg.persist_full_every,
+                compact_every=self.cfg.persist_compact_every,
+            )
 
     # --------------------------------------------------------------- admit
     def submit(self, prompt, sampling: Optional[SamplingParams] = None) -> int:
@@ -506,6 +512,12 @@ class Scheduler:
         if self.gate is not None:
             h["gate_acquires"] = self.gate.stats.acquires
             h["gate_demotions"] = self.gate.stats.demotions
+        if self.plane is not None:
+            h["persist_saves"] = self.plane.saves
+            h["persist_compactions"] = self.plane.compactions
+            if self.plane.last_save_stats:
+                h["persist_last_kind"] = self.plane.last_save_stats.get("kind")
+                h["persist_last_bytes"] = self.plane.last_save_stats.get("bytes_written")
         # a single boolean for monitors: anything degraded/broken right now?
         h["ok"] = (
             not h.get("degraded", False)
@@ -565,20 +577,65 @@ class Scheduler:
             else:
                 remaining.append((ckpt_id, fut))
         self._pending_evict = remaining
+        if evicted and self.plane is not None:
+            # the just-landed dumps are durable in the image store; commit
+            # the manifest so this warm pool survives process death
+            self.persist_now()
         return evicted
 
     # ---------------------------------------------------------- persistence
     def persist_now(self) -> Optional[int]:
-        """Commit a manifest snapshot of the suspended warm pool: not ported
-        yet (it needs ``core/persist.py``); raises ``NotImplementedError``."""
-        raise NotImplementedError(_NO_PERSIST)
+        """Commit a manifest snapshot of the suspended warm pool (sessions
+        whose dumps have landed + the DeltaCR image store); returns the
+        snapshot seq, or None when no plane is configured."""
+        if self.plane is None:
+            return None
+        with self._lock:
+            sessions = sorted(
+                (h.sid, h.ckpt_id)
+                for h in self.handles.values()
+                if h.state == "suspended"
+                and h.ckpt_id is not None
+                and self.cr.images.image_for(h.ckpt_id) is not None
+            )
+        return self.plane.save(
+            deltacr=self.cr,
+            extra={"sessions": [list(s) for s in sessions]},
+        )
 
     @classmethod
-    def recover(cls, engine: Engine, path: str, cfg: Optional[SchedulerConfig] = None,
-                *, restore_fn) -> "Scheduler":
-        """Rebuild a scheduler warm pool after process death: not ported yet
-        (it needs ``core/persist.py``); raises ``NotImplementedError``."""
-        raise NotImplementedError(_NO_PERSIST)
+    def recover(
+        cls,
+        engine: Engine,
+        path: str,
+        cfg: Optional[SchedulerConfig] = None,
+        *,
+        restore_fn,
+    ) -> "Scheduler":
+        """Rebuild a scheduler warm pool after process death.
+
+        Recovers the persisted DeltaCR image store onto the engine's device
+        and re-admits every persisted suspended session as a ``suspended``
+        handle; ``resume`` then slow-restores it from its durable image
+        exactly as if this process had suspended it.  ``restore_fn``
+        rebuilds a session from an image payload (e.g.
+        ``PagedSession.restore_from_payload``)."""
+        rec = recover_state(path, restore_fn=restore_fn, device=engine.device)
+        cfg = cfg if cfg is not None else SchedulerConfig()
+        if cfg.persist_path is None:
+            cfg = dataclasses.replace(cfg, persist_path=path)
+        sched = cls(engine, rec.deltacr, cfg)
+        max_sid, max_ckpt = 0, 1_000_000 - 1
+        for sid, ckpt_id in rec.extra.get("sessions", []):
+            sid, ckpt_id = int(sid), int(ckpt_id)
+            sched.handles[sid] = SessionHandle(
+                sid=sid, state="suspended", session=None, ckpt_id=ckpt_id
+            )
+            max_sid = max(max_sid, sid)
+            max_ckpt = max(max_ckpt, ckpt_id)
+        sched._sid = itertools.count(max_sid + 1)
+        sched._ckpt = itertools.count(max_ckpt + 1)
+        return sched
 
     def _ensure_headroom(self) -> None:
         """Below the watermark: first reap deferred evictions, then suspend

@@ -441,3 +441,99 @@ def test_cuda_page_copy_unaligned_pages(cuda):
     torch.cuda.synchronize()
     for p, w in zip(pools, wants):
         assert torch.equal(p, w)
+
+
+# ---------------------------------------------------------------------------
+# persistence: a CUDA chain saved and recovered onto the card
+# ---------------------------------------------------------------------------
+def _saved_cuda_chain(cuda, root, fused):
+    """Three checkpoints of a CUDA state under a StateManager, saved to
+    ``root``; returns the current checkpoint's bytes and its id."""
+    from repro_torch.core import DeltaFS, Sandbox, StateManager, save_state
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    state = CowTensorState(
+        {
+            "kv": torch.randn((512, 8, 128), generator=gen, device=cuda).to(torch.bfloat16),
+            "heap": torch.randn(1 << 20, generator=gen, device=cuda),
+        },
+        device=cuda,
+    )
+    fs = DeltaFS(chunk_bytes=1 << 16)
+    fs.write("repo/a", np.arange(4096, dtype=np.int32))
+    cr = DeltaCR(store=fs.store, restore_fn=lambda p: CowTensorState(p, device=cuda),
+                 policy=DumpPolicy(mode="delta", fused_kernel=fused), chunk_bytes=1 << 16)
+    sm = StateManager(Sandbox(fs, state), cr)
+    for c in range(3):
+        if c:
+            sm.sandbox.proc.mutate("kv", lambda t, c=c: t[64 * c : 64 * c + 64].fill_(float(c)))
+            sm.sandbox.proc.mutate("heap", lambda t, c=c: t[9000 * c : 9000 * c + 5].add_(1.0))
+        current = sm.checkpoint()
+    cr.wait_dumps()
+    save_state(root, sm=sm)
+    want = state_to_numpy(sm.sandbox.proc)
+    cr.shutdown()
+    return want, current
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [True, False])
+def test_cuda_chain_recovers_onto_the_card(cuda, tmp_path, fused):
+    """Recovered with ``device="cuda"``: the rebuilt anchors are CUDA uint8
+    tensors, the trunk's restore scatters with ``delta_apply`` over the
+    anchored parent, and the first dump after it is on the kernel path
+    (``delta_fused``, or ``delta_diff`` with the fused plan off) with no
+    tensor on the full path."""
+    from repro_torch.core import recover
+
+    root = str(tmp_path / "root")
+    want, current = _saved_cuda_chain(cuda, root, fused)
+    ops.reset_launch_counts()
+    rec = recover(root, device="cuda", policy=DumpPolicy(mode="delta", fused_kernel=fused))
+    cr, sm = rec.deltacr, rec.state_manager
+    try:
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["delta_apply"] > 0
+        assert rec.trunk_restore_mode == "slow" and rec.current == current
+        anchors = cr.pipeline.anchored_ids()
+        assert anchors
+        for image_id in anchors:
+            record = cr.pipeline.record_for(image_id)
+            try:
+                for view in record.views.values():
+                    assert isinstance(view.grid, torch.Tensor)
+                    assert view.grid.device.type == "cuda" and view.grid.dtype == torch.uint8
+            finally:
+                cr.pipeline.release_record(record)
+        for k, v in state_to_numpy(sm.sandbox.proc).items():
+            np.testing.assert_array_equal(v, want[k])
+        sm.sandbox.proc.mutate("heap", lambda t: t[:3].add_(2.0))
+        kernel_before, full_before = cr.stats.kernel_keys, cr.stats.full_keys
+        ops.reset_launch_counts()
+        c = sm.checkpoint()
+        cr.wait_dumps()
+        torch.cuda.synchronize()
+        assert cr.dump_future(c).result().mode == "delta"
+        assert cr.stats.full_keys == full_before
+        assert cr.stats.kernel_keys > kernel_before         # the dirtied heap
+        counts = ops.launch_counts()
+        assert counts["delta_fused" if fused else "delta_diff"] > 0
+    finally:
+        cr.shutdown()
+
+
+@pytest.mark.gpu
+def test_cuda_anchor_upload_failure_raises(cuda, tmp_path, monkeypatch):
+    """A failed upload of a rebuilt anchor fails the recovery; it never
+    leaves a host grid behind."""
+    from repro_torch.core import delta_pipeline, recover
+
+    root = str(tmp_path / "root")
+    _saved_cuda_chain(cuda, root, True)
+
+    def fail(grid, device):
+        raise torch.cuda.OutOfMemoryError("upload failed")
+
+    monkeypatch.setattr(delta_pipeline, "_upload_grid", fail)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        recover(root, device="cuda")

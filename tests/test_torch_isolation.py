@@ -7,6 +7,7 @@ import sys
 from pathlib import Path
 
 import jax  # noqa: F401  (the suite shares one process with the JAX tests)
+import numpy as np
 import pytest
 import torch
 
@@ -40,7 +41,7 @@ def test_port_sources_are_covered():
         "delta_fused.py", "delta_diff.py", "delta_apply.py", "deltacr.py", "chip_smoke.py",
         "page_copy.py", "paged_attention.py", "kvcache.py", "engine.py", "model.py", "layers.py",
         "sandbox_tree.py", "gc.py", "scheduler.py", "mcts.py", "fanout.py", "archetypes.py",
-        "decode_task.py",
+        "decode_task.py", "persist.py",
     } <= names
 
 
@@ -120,3 +121,74 @@ def test_serving_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         PagePool(cfg, num_pages=4)
     assert PagePool(cfg, num_pages=4, device="cpu").pools_k["stage0"]["l0_s0_attn"].device.type == "cpu"
+
+
+def _saved_root(tmp_path):
+    """A persisted root of one host-state checkpoint."""
+    from repro_torch.core import CowArrayState, DeltaCR, save_state
+
+    cr = DeltaCR(restore_fn=lambda p: CowArrayState(p), chunk_bytes=256)
+    cr.checkpoint(CowArrayState({"heap": np.arange(512, dtype=np.float32)}), 1, None)
+    cr.wait_dumps()
+    root = str(tmp_path / "root")
+    save_state(root, deltacr=cr)
+    cr.shutdown()
+    return root
+
+
+def test_recover_defaults_to_the_card(tmp_path):
+    """``recover`` and ``PersistencePlane.recover`` without a device mean
+    the card: without one they raise, never recover onto the CPU."""
+    from repro_torch.core import PersistencePlane, recover
+
+    root = _saved_root(tmp_path)
+    if torch.cuda.is_available():
+        rec = recover(root)
+        rec_id = rec.deltacr.pipeline.anchored_ids()[0]
+        rec_grid = rec.deltacr.pipeline.record_for(rec_id).views["heap"].grid
+        assert rec_grid.device.type == "cuda"
+        rec.deltacr.shutdown()
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        recover(root)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PersistencePlane(root).recover()
+    rec = recover(root, device="cpu")
+    assert rec.deltacr.images.image_for(1) is not None
+    rec.deltacr.shutdown()
+
+
+def test_rebuilt_anchors_are_uploaded_once_or_raise(tmp_path, monkeypatch):
+    """Off the CPU, every rebuilt anchor grid is a uint8 tensor on the asked
+    device (the meta device stands in for the card here), one upload per
+    tensor; a failed upload raises and registers no host grid."""
+    from repro_torch.core import recover
+    from repro_torch.core import delta_pipeline
+
+    root = _saved_root(tmp_path)
+    rec = recover(root, device="cpu", auto_restore=False)
+    pipe, image = rec.deltacr.pipeline, rec.deltacr.images.image_for(1)
+    host = pipe.record_for(image.image_id)
+    assert isinstance(host.views["heap"].grid, np.ndarray)   # the CPU keeps numpy
+    pipe.release_record(host)
+    pipe.clear()
+    uploads = []
+    real = delta_pipeline._upload_grid
+    monkeypatch.setattr(delta_pipeline, "_upload_grid",
+                        lambda g, d: uploads.append(g.shape) or real(g, d))
+    assert pipe.rebuild_generation(image, device="meta")
+    rec_ = pipe.record_for(image.image_id)
+    grid = rec_.views["heap"].grid
+    pipe.release_record(rec_)
+    assert grid.device.type == "meta" and grid.dtype == torch.uint8
+    assert tuple(grid.shape) == (8, 256) and uploads == [(8, 256)]
+    pipe.clear()
+
+    def fail(g, d):
+        raise torch.cuda.OutOfMemoryError("upload failed")
+
+    monkeypatch.setattr(delta_pipeline, "_upload_grid", fail)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        pipe.rebuild_generation(image, device="meta")
+    assert pipe.anchored_ids() == []
+    rec.deltacr.shutdown()

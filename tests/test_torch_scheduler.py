@@ -31,6 +31,7 @@ from repro.serve import SamplingParams as JSamplingParams
 from repro.serve import Scheduler as JScheduler
 from repro.serve import SchedulerConfig as JSchedulerConfig
 from repro_torch.configs import get_config
+import repro_torch.core as T
 from repro_torch.core import (
     DeltaCR,
     DeltaFS,
@@ -39,6 +40,8 @@ from repro_torch.core import (
     SandboxTree,
     StateManager,
     reachability_gc,
+    recover,
+    save_state,
 )
 from repro_torch.core.convert import params_from_numpy
 from repro_torch.models import Model
@@ -210,35 +213,119 @@ def test_scheduler_dump_timeout_policy_raise(rig):
     cr.shutdown()
 
 
-def test_persistence_plane_is_not_ported_yet(rig):
-    """A persist path, ``persist_now`` and ``recover`` raise rather than run
-    without persistence."""
+def test_scheduler_warm_pool_survives_restart(rig, tmp_path):
+    """Persistence plane end-to-end: suspended sessions are checkpointed to
+    the manifest on coalesced suspends; a fresh scheduler (fresh process
+    analogue) recovers them and resumes byte-identical decoding."""
     cfg, _, _, model = rig
-    pool = _pool(cfg, 16)
+    pool = _pool(cfg, 32)
     eng = Engine(model, pool)
     cr = _cr(pool)
-    with pytest.raises(NotImplementedError, match="persist"):
-        Scheduler(eng, cr, SchedulerConfig(persist_path="/nonexistent/warm-pool"))
-    sched = Scheduler(eng, cr)
-    with pytest.raises(NotImplementedError, match="persist"):
-        sched.persist_now()
-    with pytest.raises(NotImplementedError, match="persist"):
-        Scheduler.recover(eng, "/nonexistent/warm-pool", restore_fn=cr.restore_fn)
-    assert "persist_saves" not in sched.health()
+    root = str(tmp_path / "warm-pool")
+    sched = Scheduler(
+        eng,
+        cr,
+        SchedulerConfig(max_batch=4, min_free_pages=2, auto_suspend_free_pages=2,
+                        persist_path=root),
+    )
+    a = sched.submit([1, 2, 3, 4, 5], SamplingParams(seed=1))
+    b = sched.submit([5, 4, 3], SamplingParams(seed=2))
+    for _ in range(3):
+        sched.step()
+    tokens_a = list(sched.handles[a].session.tokens)
+    sched.suspend(a)                      # coalesced: dump queued, evict deferred
+    cr.wait_dumps()
+    assert sched._drain_suspends() >= 1   # dump landed → manifest committed
+    assert sched.plane is not None and sched.plane.last_seq() is not None
+    # continue the survivor, then "crash": tear everything down
+    sched.step()
+    sched.finish(b)
     cr.shutdown()
+
+    # fresh scheduler over the same engine/pool recovers the warm pool
+    pool2 = _pool(cfg, 32)
+    eng2 = Engine(model, pool2)
+    restore2 = lambda p: PagedSession.restore_from_payload(pool2, p)  # noqa: E731
+    sched2 = Scheduler.recover(eng2, root, restore_fn=restore2)
+    recovered = [h for h in sched2.handles.values() if h.state == "suspended"]
+    assert [h.sid for h in recovered] == [a]
+    sched2.resume(a)
+    h = sched2.handles[a]
+    assert h.state == "active" and h.session is not None
+    assert list(h.session.tokens) == tokens_a     # byte-identical rollback
+    out = sched2.step()                           # and it decodes again
+    assert a in out
+    new_sid = sched2.submit([7, 7], SamplingParams(seed=3))
+    assert new_sid > a                            # sid counter resumed past recovery
+    for s in list(sched2.handles):
+        if sched2.handles[s].state != "finished":
+            sched2.finish(s)
+    sched2.cr.shutdown()
+
+
+def _warm_pool_world(port, rig, root):
+    """The warm-pool restart of one package: what the suspended session
+    held, what the recovered scheduler holds, and what it decodes."""
+    cfg, jmodel, jparams, model = rig
+    if port:
+        mk_pool = lambda: _pool(cfg, 32)  # noqa: E731
+        mk_eng = lambda pool: Engine(model, pool)  # noqa: E731
+        restore_of = PagedSession.restore_from_payload
+        S, SC, sp, DCR = Scheduler, SchedulerConfig, SamplingParams, DeltaCR
+    else:
+        mk_pool = lambda: JPagePool(j_get_config(cfg.name), num_pages=32, page_size=8,  # noqa: E731
+                                    max_pages_per_session=8)
+        mk_eng = lambda pool: JEngine(jmodel, jparams, pool)  # noqa: E731
+        restore_of = JPagedSession.restore_from_payload
+        S, SC, sp, DCR = JScheduler, JSchedulerConfig, JSamplingParams, J.DeltaCR
+    pool = mk_pool()
+    cr = DCR(template_pool_size=8, async_warm=False,
+             restore_fn=lambda p: restore_of(pool, p))
+    sched = S(mk_eng(pool), cr, SC(max_batch=4, min_free_pages=2, auto_suspend_free_pages=2,
+                                   persist_path=root))
+    a = sched.submit([1, 2, 3, 4, 5], sp(temperature=0.8, seed=1))
+    b = sched.submit([5, 4, 3], sp(seed=2))
+    for _ in range(3):
+        sched.step()
+    before = list(sched.handles[a].session.tokens)
+    sched.suspend(a)
+    cr.wait_dumps()
+    sched._drain_suspends()
+    # the doc's byte count carries timing floats (wall_ms, ...); the pack's
+    # bytes and chunk count do not
+    saved = {k: v for k, v in sched.health().items()
+             if k.startswith("persist_") and k != "persist_last_bytes"}
+    saved.update({k: sched.plane.last_save_stats[k] for k in ("pack_bytes", "new_chunks")})
+    sched.finish(b)
+    cr.shutdown()
+    pool2 = mk_pool()
+    sched2 = S.recover(mk_eng(pool2), root, restore_fn=lambda p: restore_of(pool2, p))
+    handles = sorted((h.sid, h.state, h.ckpt_id) for h in sched2.handles.values())
+    sched2.resume(a)
+    after = list(sched2.handles[a].session.tokens)
+    decoded = [sched2.step()[a] for _ in range(4)]
+    sched2.finish(a)
+    sched2.cr.shutdown()
+    return before, saved, handles, after, decoded
+
+
+def test_warm_pool_recovery_matches_the_reference(rig, tmp_path):
+    """The same warm-pool restart in both packages, on the same weights and
+    sampling: equal saved-plane health, recovered handles, resumed tokens
+    and the tokens decoded after the resume."""
+    want = _warm_pool_world(False, rig, str(tmp_path / "reference"))
+    got = _warm_pool_world(True, rig, str(tmp_path / "port"))
+    assert got == want
+    assert want[1]["persist_saves"] == 1 and want[1]["persist_last_kind"] == "full"
 
 
 def test_scheduler_config_matches_the_reference():
     """The port keeps every field of the reference's config, with the
-    reference's defaults, but the persistence plane's cadence fields, which
-    wait for that plane; ``persist_path`` stays and raises when set."""
+    reference's defaults."""
     got = dataclasses.asdict(SchedulerConfig())
     want = dataclasses.asdict(JSchedulerConfig())
-    cadence = {"keep_snapshots", "persist_full_every", "persist_compact_every"}
-    assert set(want) - set(got) == cadence
-    assert set(got) <= set(want)
-    assert got == {k: v for k, v in want.items() if k not in cadence}
-    assert got["persist_path"] is None
+    assert got == want
+    assert list(got) == list(want)
 
 
 # ---------------------------------------------------------------------------
@@ -359,6 +446,98 @@ class LMTask:
 
     def is_readonly(self, action):
         return False
+
+
+# ---------------------------------------------------------------------------
+# the recovered-trunk case of tests/test_decode_fork.py (olmo)
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def olmo_rig():
+    return _build("olmo-1b-tiny")
+
+
+def test_recovered_trunk_decodes_without_manual_restore(olmo_rig, tmp_path):
+    cfg, _, _, model = olmo_rig
+    pool = _pool(cfg, 96, max_pages=16)
+    eng = Engine(model, pool)
+
+    sess = eng.new_session([5, 4, 3, 2, 1])
+    eng.generate(sess, 3)
+    tree, sm, cr = _mk_tree(pool, sess)
+    ck = sm.checkpoint()
+    cr.wait_dumps()
+    root = str(tmp_path / "state")
+    save_state(root, sm=sm)
+    expected = eng.step([sess])[0]               # the token the trunk lands next
+
+    # fresh process analogue: new pool + engine, recover, decode immediately
+    pool2 = _pool(cfg, 96, max_pages=16)
+    eng2 = Engine(model, pool2)
+    rec = recover(root, restore_fn=lambda p: PagedSession.restore_from_payload(pool2, p),
+                  device="cpu")
+    assert rec.trunk_restore_mode == "slow"      # recovered CR has images only
+    trunk = rec.state_manager.sandbox.proc
+    assert isinstance(trunk, PagedSession)
+    got = eng2.step([trunk])[0]
+    assert got == expected
+    cr.shutdown()
+    rec.deltacr.shutdown()
+
+
+def _trunk_root(port, rig, root):
+    """Save a decoded trunk session of one package; returns the tokens its
+    next greedy steps decode (before any crash)."""
+    cfg, jmodel, jparams, model = rig
+    if port:
+        pool = _pool(cfg, 96, max_pages=16)
+        eng = Engine(model, pool)
+        pkg, restore_of = T, PagedSession.restore_from_payload
+    else:
+        pool = JPagePool(j_get_config(cfg.name), num_pages=96, page_size=8,
+                         max_pages_per_session=16)
+        eng = JEngine(jmodel, jparams, pool)
+        pkg, restore_of = J, JPagedSession.restore_from_payload
+    sess = eng.new_session([5, 4, 3, 2, 1])
+    eng.generate(sess, 3)
+    cr = pkg.DeltaCR(template_pool_size=8, async_warm=False,
+                     restore_fn=lambda p: restore_of(pool, p))
+    sm = pkg.StateManager(pkg.Sandbox(pkg.DeltaFS(chunk_bytes=256), sess), cr)
+    sm.checkpoint()
+    cr.wait_dumps()
+    pkg.save_state(root, sm=sm)
+    want = [int(eng.step([sess])[0]) for _ in range(3)]
+    cr.shutdown()
+    return want
+
+
+def _recovered_tokens(port, rig, root):
+    """Recover ``root`` with one package and decode 3 greedy steps."""
+    cfg, jmodel, jparams, model = rig
+    if port:
+        pool = _pool(cfg, 96, max_pages=16)
+        eng = Engine(model, pool)
+        rec = recover(root, restore_fn=lambda p: PagedSession.restore_from_payload(pool, p),
+                      device="cpu")
+    else:
+        pool = JPagePool(j_get_config(cfg.name), num_pages=96, page_size=8,
+                         max_pages_per_session=16)
+        eng = JEngine(jmodel, jparams, pool)
+        rec = J.recover(root, restore_fn=lambda p: JPagedSession.restore_from_payload(pool, p))
+    trunk = rec.state_manager.sandbox.proc
+    got = [int(eng.step([trunk])[0]) for _ in range(3)]
+    rec.deltacr.shutdown()
+    return rec.trunk_restore_mode, got
+
+
+def test_recovered_trunk_matches_the_reference(olmo_rig, tmp_path):
+    """Both packages recover a saved trunk and decode the tokens it decoded
+    before the crash; the port also recovers the reference's root."""
+    j_root, t_root = str(tmp_path / "reference"), str(tmp_path / "port")
+    want = _trunk_root(False, olmo_rig, j_root)
+    assert _trunk_root(True, olmo_rig, t_root) == want
+    assert _recovered_tokens(False, olmo_rig, j_root) == ("slow", want)
+    assert _recovered_tokens(True, olmo_rig, t_root) == ("slow", want)
+    assert _recovered_tokens(True, olmo_rig, j_root) == ("slow", want)
 
 
 @pytest.fixture(scope="module")
