@@ -72,10 +72,29 @@ Phases:
 4b. checkpoint profile — the C/R cell of phase 4 for 4 turns, turn 1's
    checkpoint and dump under ``torch.profiler``: the device time one
    checkpoint costs, by kernel, copy and memset;
+9. model families — each model built from the port's registry with seeded
+   random bf16 weights over a 1024-page pool, on phase 6's prompt: prefill,
+   16 steps with a delta checkpoint after 8 and 16, four fast forks decoding
+   8 batched steps, a slow restore that must decode exactly what a fast fork
+   decodes; forks copy no page and no recurrent state, and stepping a parent
+   leaves its forks' states unchanged.  (9a) the whole ``qwen3-moe-30b-a3b``
+   (48 attention + MoE layers, 128 experts top-8), its embedding table
+   drawn at std 4 so that routing does not collapse onto a few experts;
+   every routing call's capacity slots and drops are recomputed on the
+   host and must match; (9b) the whole ``xlstm-1.3b`` (42 mLSTM
+   and 6 sLSTM layers, no attention: its state is all recurrent and its
+   dumps launch no kernel); (9c) ``gemma3-27b`` cut to one period (5
+   sliding-window layers and 1 global), the prompt past the window.  (9d)
+   each new sublayer at its config's full width, a 256-token prefill (1536
+   for ``attn_local``) and 4 decode steps, on the card in bf16 against the
+   CPU in float32 within 2e-2 relative: ``moe``, ``mamba`` (jamba),
+   ``mlstm``, ``slstm``, ``attn_local`` and M-RoPE attention (qwen2-vl).
+   Phase 9 runs after the profiler of phases 6 and 4b has been used, so its
+   host-bound step times are slower than a fresh process's;
 5. report — one JSON line per kernel, the ``{"kernels": [...]}`` line, the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
-Phases run in the order 1, 2, 3, 3b, 4, 6, 7, 8, 4b, 5.
+Phases run in the order 1, 2, 3, 3b, 4, 6, 7, 8, 4b, 9, 5.
 
 Any failure exits non-zero before the last line is printed.  The script
 imports nothing of JAX or of the JAX package.
@@ -562,6 +581,25 @@ def check_serving_kernels(device) -> dict:
         attention_case(2, 2, 8, 256, 16, 64, 64, dtype, split=16)   # largest smem and registers
         attention_case(2, 2, 4, 128, 16, 64, 37, dtype, split=8)    # 37 pages over 8 blocks
     attention_case(1, *served, "bfloat16", lens=[2043], split=16)  # B = 1, served width
+    # phase 9's served shapes: qwen3-moe-30b-a3b's layers and gemma3-27b's
+    # global layer over a 136-page table, 4 forks of one session and one
+    # alone; then their stacked pools as a materialize passes them (the K
+    # and V of qwen3-moe's 48 periods; gemma3's 6 layers' 12 pools, which
+    # take 2 launches)
+    for name, split_b4 in (("qwen3-moe-30b-a3b", 16), ("gemma3-27b", 4)):
+        fam = family_config(name)
+        shape = (fam.n_kv_heads, fam.n_heads // fam.n_kv_heads, fam.head_dim, SERVED_PSZ,
+                 SERVED_PAGES, FAMILY_MAX_PAGES)
+        attention_case(SERVED_B, *shape, "bfloat16", lens=SERVED_LENS,
+                       shared=SERVED_SHARED_PAGES, split=split_b4)
+        attention_case(1, *shape, "bfloat16", lens=[2043], split=16)
+    moe = family_config("qwen3-moe-30b-a3b")
+    moe_pool = (moe.stages[0].n_periods, SERVED_PAGES, SERVED_PSZ, moe.n_kv_heads, moe.head_dim)
+    copy_case(moe_pool, COPY_PAIRS, torch.bfloat16, True)
+    pools_case(moe_pool, COPY_PAIRS, torch.bfloat16, 2)
+    gemma = family_config("gemma3-27b", 1)
+    pools_case((1, SERVED_PAGES, SERVED_PSZ, gemma.n_kv_heads, gemma.head_dim), COPY_PAIRS,
+               torch.bfloat16, 2 * gemma.n_layers)
     torch.cuda.synchronize()
     return errs
 
@@ -2241,6 +2279,419 @@ def run_warm_pool_path(
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the remaining model families
+# ---------------------------------------------------------------------------
+# 9a: the JAX package's src/repro/configs/qwen3_moe_30b_a3b.py, whole; 9b:
+# xlstm_1_3b.py, whole; 9c: gemma3_27b.py cut to its first stage's one period
+# 9a draws its embedding table at std 4, where the JAX package's init draws
+# 1/sqrt(d_model): at that scale the attention layers' output, nearly the same
+# for every token, swamps each token's own embedding a few layers deep, the
+# hidden states align, most tokens route to the same few experts, the
+# capacity rule drops most assignments and every fork decodes one token
+FAMILY_EMBED_STD = 4.0
+# (part, config, periods, embedding std or None for the reference's init)
+FAMILY_PARTS = (("9a", "qwen3-moe-30b-a3b", None, FAMILY_EMBED_STD),
+                ("9b", "xlstm-1.3b", None, None), ("9c", "gemma3-27b", 1, None))
+FAMILY_STEPS = 16               # trunk steps; a delta checkpoint after 8 and after 16
+FAMILY_FORKS = 4
+FAMILY_FORK_STEPS = 8
+FAMILY_MAX_PAGES = 136          # 2011 + 16 + 9 tokens fill 128 pages of 16
+SERVE_VOCAB = 151936            # phase 6's vocabulary: its prompt is drawn over it
+# 9d: (label, config, sublayer kind, prefill tokens); each then decodes 4 steps
+SUBLAYER_CASES = (
+    ("moe", "qwen3-moe-30b-a3b", "moe", 256),
+    ("mamba", "jamba-1.5-large-398b", "mamba", 256),
+    ("mlstm", "xlstm-1.3b", "mlstm", 256),
+    ("slstm", "xlstm-1.3b", "slstm", 256),
+    ("attn_local", "gemma3-27b", "attn_local", 1536),     # past its 1024-token window
+    ("attn_mrope", "qwen2-vl-2b", "attn", 256),
+)
+SUBLAYER_DECODE_STEPS = 4
+SUBLAYER_TOL = 2e-2             # card (bf16) against CPU (float32), relative
+
+
+def family_config(name: str, periods=None):
+    """``name``'s config from the port's registry, or, with ``periods``, cut
+    to that many periods of its first stage (widths unchanged)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import Stage
+
+    cfg = get_config(name)
+    if periods is None:
+        return cfg
+    return dataclasses.replace(cfg, name=f"{name}-{periods}p",
+                               stages=(Stage(period=cfg.stages[0].period, n_periods=periods),))
+
+
+@contextlib.contextmanager
+def recording_moe_routes(sink: list):
+    """While active, every MoE routing call appends its expert ids, capacity
+    slots and keep mask (device tensors, no synchronization) and its
+    capacity C to ``sink``."""
+    from repro_torch.models import layers as L
+
+    route = L._moe_route
+
+    def recorded(params, spec, x):
+        out = route(params, spec, x)
+        sink.append((out[1], out[2], out[3], out[5]))
+        return out
+
+    L._moe_route = recorded
+    try:
+        yield
+    finally:
+        L._moe_route = route
+
+
+def check_capacity_rule(sink: list):
+    """Recompute every recorded routing call's capacity slots on the host:
+    an assignment's slot counts the earlier assignments of its batch row, in
+    token-major order, to the same expert, and slot C and past it drop.
+    Fails where the device's slots or keep mask differ; returns the share of
+    assignments dropped (None with no call recorded)."""
+    import numpy as np
+
+    if not sink:
+        return None
+    dropped = made = 0
+    for flat_e, flat_p, keep, C in sink:
+        e, p, k = flat_e.cpu().numpy(), flat_p.cpu().numpy(), keep.cpu().numpy()
+        slot = np.empty_like(e)
+        for b in range(e.shape[0]):
+            order = np.argsort(e[b], kind="stable")
+            ranked = e[b][order]
+            slot[b, order] = np.arange(e.shape[1]) - np.searchsorted(ranked, ranked)
+        if not (np.array_equal(k, slot < C) and np.array_equal(p, np.minimum(slot, C))):
+            raise AssertionError(f"the capacity rule's slots differ from the host's (C = {C})")
+        dropped += int((slot >= C).sum())
+        made += e.size
+    return dropped / made
+
+
+def _state_snapshot(sess, keys) -> dict:
+    return {(k, leaf): t.clone() for k in keys for leaf, t in sess.extras[k].items()}
+
+
+def run_family_path(
+    device,
+    *,
+    config: str,
+    periods=None,
+    num_pages: int = SERVE_PAGES,
+    page_size: int = SERVE_PAGE_SIZE,
+    max_pages: int = FAMILY_MAX_PAGES,
+    prompt_len: int = SERVE_PROMPT,
+    steps: int = FAMILY_STEPS,
+    forks: int = FAMILY_FORKS,
+    fork_steps: int = FAMILY_FORK_STEPS,
+    slow_steps: int = SERVE_SLOW_STEPS,
+    embed_std=None,
+    seed: int = 0,
+) -> dict:
+    """Phases 9a-9c: ``config`` (cut by ``family_config``) with seeded
+    random weights (the embedding table rescaled to ``embed_std`` when it is
+    given), served through ``Engine`` under
+    ``StateManager(Sandbox(DeltaFS, trunk), DeltaCR)``: phase 6's prompt
+    (taken modulo a smaller vocabulary) prefilled, ``steps`` greedy steps
+    with a delta checkpoint halfway and at the end, ``forks`` fast restores
+    of the last checkpoint decoding ``fork_steps`` batched steps from
+    divergent pending tokens, and a slow restore after the template is
+    evicted.  Gates: a fork copies no page and no state (its states alias
+    the template's), stepping the parent leaves a fork's state bytes
+    unchanged, the slow-restored states are back on the model's device and
+    equal a fast fork's, and the slow restore decodes exactly the fast
+    fork's tokens and logits; the forks decode pairwise different streams.
+    An MoE config's routing at prefill and over the forks' steps is held
+    against the host's capacity rule (``check_capacity_rule``), and one
+    batched step is profiled on the card.  Returns the metrics."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import DeltaCR, DeltaFS, DumpPolicy, Sandbox, StateManager
+    from repro_torch.kernels import launch_counts
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine, PagePool, PagedSession
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    rng = np.random.default_rng(seed)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(family_config(config, periods), device=device)
+    model.init(torch.Generator(device=device).manual_seed(seed))
+    cfg = model.cfg
+    if embed_std is not None:
+        model.params["embed"].mul_(embed_std * cfg.d_model ** 0.5)
+    pool = PagePool(cfg, num_pages=num_pages, page_size=page_size,
+                    max_pages_per_session=max_pages, device=device)
+    eng = Engine(model, pool)
+    sync()
+    init_s = time.perf_counter() - t0
+    is_moe = "moe" in cfg.sublayer_kinds()
+    state_keys = sorted(pool.state_keys)
+
+    def steps_(sessions, n):
+        """n batched steps; per-step ms and the token streams."""
+        ms, streams = [], [[] for _ in sessions]
+        for _ in range(n):
+            sync()
+            t = time.perf_counter()
+            toks = eng.step(sessions)
+            sync()
+            ms.append((time.perf_counter() - t) * 1e3)
+            for i, tok in enumerate(toks):
+                streams[i].append(tok)
+        return ms, streams
+
+    launches0 = dict(launch_counts())
+    steps0 = eng.decode_steps
+    prompt = (rng.integers(0, SERVE_VOCAB, size=prompt_len) % cfg.vocab_size).tolist()
+    # -- warm-up: one prefill of the prompt through the engine, released, so
+    #    the timed prefill pays no first-use cost
+    eng.new_session(prompt).release()
+    # -- the trunk: prefill (its routing recorded), steps, a delta checkpoint
+    #    halfway and at the end
+    prefill_routes: list = []
+    sync()
+    t = time.perf_counter()
+    with recording_moe_routes(prefill_routes):
+        trunk = eng.new_session(prompt)
+    sync()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    b1_ms, _ = steps_([trunk], steps // 2)
+    fs = DeltaFS()
+    cr = DeltaCR(
+        store=fs.store, async_warm=False, policy=DumpPolicy(mode="delta"),
+        restore_fn=lambda p: PagedSession.restore_from_payload(pool, p),
+    )
+    sm = StateManager(Sandbox(fs, trunk), cr)
+    fs.write("task/prompt.txt", np.asarray(prompt, np.int32))
+    sm.checkpoint()
+    cr.wait_dumps()
+    ms, _ = steps_([trunk], steps - steps // 2)
+    b1_ms += ms
+    state_bytes = sum(t.nbytes for k in state_keys for t in trunk.extras[k].values())
+    d2h0 = cr.pipeline.d2h_bytes
+    sync()
+    t = time.perf_counter()
+    c2 = sm.checkpoint()
+    ckpt_call_ms = (time.perf_counter() - t) * 1e3
+    cr.wait_dumps()
+    sync()
+    dump_ms = (time.perf_counter() - t) * 1e3
+    d2h = cr.pipeline.d2h_bytes - d2h0
+    img2 = cr.dump_future(c2).result()
+
+    # -- forks: zero-copy, states aliased, isolated from the parent's steps
+    copied0 = pool.stats.copied_pages
+    mem0 = torch.cuda.memory_allocated() if on_card else None
+    fast_ms, kids = [], []
+    for _ in range(forks):
+        sync()
+        t = time.perf_counter()
+        kid, path = cr.restore(c2)
+        fast_ms.append((time.perf_counter() - t) * 1e3)
+        if path != "fast":
+            raise AssertionError(f"restore of c2 took the {path} path")
+        kids.append(kid)
+    fork_alloc = torch.cuda.memory_allocated() - mem0 if on_card else None
+    if pool.stats.copied_pages != copied0:
+        raise AssertionError("forking copied pages")
+    for k in state_keys:
+        for leaf in kids[0].extras[k]:
+            if len({kid.extras[k][leaf].data_ptr() for kid in kids}) != 1:
+                raise AssertionError(f"forks hold copies of {k}::{leaf}")
+    if state_keys:
+        before = _state_snapshot(kids[0], state_keys)
+        steps_([trunk], 1)                          # the parent moves on
+        after = _state_snapshot(kids[0], state_keys)
+        if not all(torch.equal(before[key], after[key]) for key in before):
+            raise AssertionError("stepping the parent changed a fork's state")
+        del before, after
+    actions = rng.choice(cfg.vocab_size, size=forks, replace=False).tolist()
+    for kid, a in zip(kids, actions):
+        kid.tokens[-1] = int(a)
+    decode_routes: list = []
+    with recording_moe_routes(decode_routes):
+        b4_ms, streams = steps_(kids, fork_steps)
+    if len({tuple(st) for st in streams}) != forks:
+        raise AssertionError(f"fork streams did not diverge: {streams}")
+    moe = {}
+    if is_moe:
+        moe = {
+            "profiled_step_b4": _profile_step(eng, kids) if on_card else None,
+            "drop_share_prefill": check_capacity_rule(prefill_routes),
+            "drop_share_decode": check_capacity_rule(decode_routes),
+        }
+        del prefill_routes, decode_routes
+
+    # -- slow restore of c2 against a fast fork taken before the eviction
+    fast = cr.restore(c2)[0]
+    saved = {k: (v.clone() if isinstance(v, torch.Tensor) else np.array(v))
+             for k, v in fast.dump_payload().items()}
+    if not cr.evict_template(c2):
+        raise AssertionError("no template to evict for c2")
+    sync()
+    t = time.perf_counter()
+    slow, path = cr.restore(c2)
+    sync()
+    slow_ms = (time.perf_counter() - t) * 1e3
+    if path != "slow":
+        raise AssertionError(f"restore of c2 after eviction took the {path} path")
+    for k in state_keys:
+        for leaf, v in slow.extras[k].items():
+            if not isinstance(v, torch.Tensor) or v.device.type != torch.device(device).type:
+                raise AssertionError(f"slow restore left {k}::{leaf} off the model's device")
+    got = slow.dump_payload()
+    if sorted(got) != sorted(saved):
+        raise AssertionError("slow restore: payload keys differ")
+    for k, want in saved.items():
+        same = (torch.equal(got[k], want) if isinstance(want, torch.Tensor)
+                else np.array_equal(np.asarray(got[k]), want))
+        if not same:
+            raise AssertionError(f"slow restore: {k} differs from c2")
+    outs = {}
+    for name, sess in (("slow", slow), ("fast", fast)):
+        toks, logits = [], []
+        for _ in range(slow_steps):
+            toks += eng.step([sess])
+            logits.append(np.array(sess.extras["last_logits"]))
+        outs[name] = (toks, logits)
+    if outs["slow"][0] != outs["fast"][0] or not all(
+        np.array_equal(a, b) for a, b in zip(outs["slow"][1], outs["fast"][1])
+    ):
+        raise AssertionError("slow-restored and fast-forked sessions decode differently")
+    launches = {k: n - launches0.get(k, 0) for k, n in launch_counts().items()}
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    out = {
+        "config": cfg.name,
+        "layers": cfg.n_layers,
+        "global_attn_layers": sum(layer.count("attn") * st.n_periods
+                                  for st in cfg.stages for layer in st.period),
+        "params": model.param_count(),
+        "launches": launches,
+        "decode_steps": eng.decode_steps - steps0,
+        "fork_streams": streams,
+        "init_s": init_s,
+        "prefill_ms": prefill_ms,
+        "prefill_tokens": prompt_len,
+        "decode_ms_b1_median": statistics.median(b1_ms),
+        "decode_ms_b4_median": statistics.median(b4_ms),
+        "tokens_per_s_b4": forks * 1e3 / statistics.median(b4_ms),
+        "checkpoint_call_ms": ckpt_call_ms,
+        "dump_complete_ms": dump_ms,
+        "c2_image_mode": img2.mode,
+        "d2h_bytes_kernel_path_c2": d2h,
+        "state_bytes_per_session": state_bytes,
+        "d2h_bytes_c2": d2h + state_bytes,
+        "fast_restore_ms_median": statistics.median(fast_ms),
+        "fork_device_bytes_allocated": fork_alloc,
+        "slow_restore_ms": slow_ms,
+        "max_memory_allocated": peak,
+        **moe,
+    }
+    for sess in kids + [fast, slow, sm.sandbox.proc]:
+        sess.release()
+    cr.shutdown()
+    return out
+
+
+def check_sublayer(device, config: str, kind: str, prompt_len: int, *,
+                   steps: int = SUBLAYER_DECODE_STEPS, seed: int = 0) -> dict:
+    """Phase 9d: one ``kind`` sublayer of ``config`` at full width, with
+    seeded weights in the config's dtype (bf16), through a ``prompt_len``
+    prefill and ``steps`` decode steps over its own cache (K/V, a ring
+    buffer, or a recurrent state), on ``device`` in the config's dtype and
+    on the CPU in float32 on the same weights and inputs (upcast).  Returns
+    the largest error over every output and the final cache, relative to
+    the CPU's largest magnitude in that tensor.
+
+    The MoE is fed its body's input directly, without the pre-norm: both
+    sides then route on the same values (the router is float32), where a
+    bf16-rounded norm would move the near-boundary top-k choices and
+    compare two different routings.  ``routing_mismatches`` counts the
+    (token, choice) expert ids that still differ."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    cfg = family_config(config)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = M._init_sublayer(kind, gen, cfg, device)
+    x = torch.randn((1, prompt_len + steps, cfg.d_model), generator=gen,
+                    device=device).to(getattr(torch, cfg.dtype))
+
+    def to_cpu32(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu32(v) for k, v in tree.items()}
+        return tree.float().cpu()
+
+    routes = {}
+
+    def run(p, c, xx, dev, side):
+        if kind == "moe":
+            spec = M._moe_spec(c)
+            routes[side] = [M.L._moe_route(p["body"], spec, xx[:, :prompt_len])[1]] + [
+                M.L._moe_route(p["body"], spec, xx[:, t:t + 1])[1]
+                for t in range(prompt_len, prompt_len + steps)]
+            return [M.L.moe_apply(p["body"], spec, xx[:, :prompt_len])[0]] + [
+                M.L.moe_apply(p["body"], spec, xx[:, t:t + 1])[0]
+                for t in range(prompt_len, prompt_len + steps)]
+        cache = M.init_cache_entry(kind, c, 1, prompt_len + steps, dev)
+        pos = torch.arange(prompt_len, dtype=torch.int32, device=dev)[None]
+        delta, state, _ = M._apply_sublayer(kind, p, c, xx[:, :prompt_len], pos, "prefill",
+                                            cache, None)
+        outs = [delta]
+        cache = state if state is not None else cache
+        for t in range(steps):
+            lens = torch.tensor([prompt_len + t], dtype=torch.int32, device=dev)
+            delta, state, _ = M._apply_sublayer(kind, p, c, xx[:, prompt_len + t:][:, :1],
+                                                lens[:, None], "decode", cache, lens)
+            outs.append(delta)
+            cache = state if state is not None else cache
+        return outs + list((cache or {}).values())
+
+    t = time.perf_counter()
+    got = [g.float().cpu() for g in run(params, cfg, x, device, "card")]
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    want = run(to_cpu32(params), cfg32, x.float().cpu(), "cpu", "cpu")
+    cpu_s = time.perf_counter() - t
+    errs = []
+    for g, w in zip(got, want):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{config} {kind}: non-finite output on {device}")
+        errs.append(float((g - w).abs().max() / w.abs().max().clamp_min(1e-30)))
+    mismatches = None
+    if kind == "moe":
+        mismatches = sum(int((a.cpu() != b).sum()) for a, b in zip(routes["card"], routes["cpu"]))
+    return {"config": config, "kind": kind, "prefill_tokens": prompt_len, "decode_steps": steps,
+            "max_rel_err": max(errs), "rel_errs": errs, "tensors_compared": len(got),
+            "routing_mismatches": mismatches, "card_s": card_s, "cpu_s": cpu_s}
+
+
+def run_sublayer_checks(device) -> list:
+    """Phase 9d: every case of ``SUBLAYER_CASES`` within ``SUBLAYER_TOL``."""
+    import torch
+
+    rows = []
+    for label, config, kind, prompt_len in SUBLAYER_CASES:
+        row = check_sublayer(device, config, kind, prompt_len)
+        row["case"] = label
+        if not row["max_rel_err"] <= SUBLAYER_TOL:
+            raise AssertionError(f"9d {label}: card against CPU {row['max_rel_err']} "
+                                 f"> {SUBLAYER_TOL}")
+        rows.append(row)
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 def checkpoint_profile(device) -> dict:
     """Phase 4b: the C/R cell again for a few turns, one checkpoint of it
     under ``torch.profiler``, for its device time by kernel.  It runs after
@@ -2406,6 +2857,52 @@ def main() -> int:
 
     # -- phase 4b: one checkpoint's device time, after every timed phase
     say(f"[4b checkpoint profile] {json.dumps(checkpoint_profile(device))} (card: {card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 9: the remaining model families (launch counts reset before each part)
+    t9 = time.perf_counter()
+    say(f"[9 families] device memory allocated before phase 9: "
+        f"{torch.cuda.memory_allocated()} B")
+    for part, config, periods, embed_std in FAMILY_PARTS:
+        t = time.perf_counter()
+        reset_launch_counts()
+        try:
+            fam = run_family_path(device, config=config, periods=periods, embed_std=embed_std)
+        except AssertionError as exc:
+            fail(f"phase {part}: {exc}")
+        fam_launches = launch_counts()
+        tag = f"[{part} {fam['config']}]"
+        say(f"{tag} launches {json.dumps(fam_launches)}")
+        want_pa = fam["global_attn_layers"] * fam["decode_steps"]
+        if fam_launches["paged_attention"] != want_pa:
+            fail(f"phase {part}: paged_attention launched {fam_launches['paged_attention']} "
+                 f"times, expected {want_pa}")
+        if part == "9a":
+            for k in ("paged_attention", "page_copy_stacked", "delta_apply"):
+                if fam_launches[k] <= 0:
+                    fail(f"kernel {k} was not launched on phase 9a's path")
+            if fam_launches["delta_diff"] + fam_launches["delta_fused"] <= 0:
+                fail("no delta kernel was launched on phase 9a's path")
+        say(f"{tag} {json.dumps(fam)} ({time.perf_counter() - t:.1f} s; card: {card})")
+        for k, n in fam_launches.items():
+            launches[k] += n
+        del fam
+        gc.collect()
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    reset_launch_counts()
+    try:
+        rows = run_sublayer_checks(device)
+    except AssertionError as exc:
+        fail(f"phase 9d: {exc}")
+    for k, n in launch_counts().items():
+        launches[k] += n
+    for row in rows:
+        say(f"[9d sublayers] {json.dumps(row)}")
+    say(f"[9d sublayers] every sublayer within {SUBLAYER_TOL} of the CPU "
+        f"({time.perf_counter() - t:.1f} s; card: {card})")
+    say(f"[9 families] phase 9 ran {time.perf_counter() - t9:.1f} s (card: {card})")
 
     # -- phase 5: report
     kernels = []

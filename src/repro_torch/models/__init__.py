@@ -1,5 +1,5 @@
-"""Dense models of the port: the JAX package's ``models`` for configs made
-of ``attn`` and ``mlp`` sublayers (see ``model.py`` for what waits)."""
+"""Models of the port: the JAX package's ``models`` for every architecture
+config (see ``model.py``)."""
 from .model import Model
 
 __all__ = ["Model"]

@@ -1,5 +1,5 @@
-"""Dense model building blocks, ported from the JAX package's
-``models/layers.py``.
+"""Model building blocks of every architecture, ported from the JAX
+package's ``models/layers.py``.
 
 Plain functions on tensors, with the JAX package's layouts so the two
 packages compare like with like:
@@ -8,11 +8,16 @@ packages compare like with like:
   for GQA: q is ``(B, S, KVH, G, Hd)``.
 * compute dtype from the config (bf16 for the full-size models, float32
   for the tiny ones), params stored in ``cfg.param_dtype``, norms, RoPE,
-  attention statistics and softmax in float32.
+  attention statistics, softmax, routers and recurrent states in float32.
 
-Only the dense subset is here: norms, 1-D RoPE, GQA attention projections,
-chunked causal attention and the GLU MLP.  There is one device, so the
-reference's sharding constraints have no counterpart.
+Norms, RoPE and M-RoPE, GQA attention projections, chunked causal
+attention (optionally sliding-window), the GLU MLP, the capacity-bounded
+top-k MoE, mamba's selective SSM and the xLSTM blocks (mLSTM, sLSTM).
+There is one device, so the reference's sharding constraints and its
+expert-parallel ``shard_map`` MoE have no counterpart.  One deliberate
+difference, exact up to float rounding: mamba's chunk recurrence is a
+doubling scan (``_linear_scan``) where the reference calls
+``lax.associative_scan``.
 """
 from __future__ import annotations
 
@@ -26,6 +31,10 @@ Params = Dict[str, Any]
 
 __all__ = [
     "AttnSpec",
+    "MambaSpec",
+    "MoESpec",
+    "XLSTMSpec",
+    "apply_mrope",
     "apply_norm",
     "apply_rope",
     "attn_init",
@@ -35,9 +44,20 @@ __all__ = [
     "glu_mlp",
     "glu_mlp_init",
     "make_norm",
+    "mamba_apply",
+    "mamba_init",
+    "mamba_init_state",
+    "mlstm_apply",
+    "mlstm_init",
+    "mlstm_init_state",
+    "moe_apply",
+    "moe_init",
     "nonparametric_ln",
     "rms_norm",
     "rope_freqs",
+    "slstm_apply",
+    "slstm_init",
+    "slstm_init_state",
 ]
 
 
@@ -82,7 +102,7 @@ def apply_norm(kind: str, params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# Rotary position embeddings (1-D)
+# Rotary position embeddings (RoPE / M-RoPE)
 # --------------------------------------------------------------------------
 def rope_freqs(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
@@ -99,6 +119,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float = 10000
     return out.to(x.dtype)
 
 
+def apply_mrope(
+    x: torch.Tensor,
+    positions_3d: torch.Tensor,       # (..., S, 3) — (t, h, w) position ids
+    sections: Tuple[int, int, int],   # head_dim/2 split across (t, h, w)
+    *,
+    theta: float = 10000.0,
+) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: frequency bands split across 3 axes.
+
+    For pure text all three position ids are equal, reducing to 1-D RoPE."""
+    head_dim = x.shape[-1]
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not split head_dim {head_dim}")
+    freqs = rope_freqs(head_dim, theta, device=x.device)          # (Hd/2,)
+    # band assignment: first sections[0] freqs use t, next use h, rest use w
+    band = torch.cat([torch.full((s,), i, dtype=torch.long, device=x.device)
+                      for i, s in enumerate(sections)])            # (Hd/2,)
+    angles = positions_3d.float()[..., band] * freqs               # (..., S, Hd/2)
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 # --------------------------------------------------------------------------
 # Attention
 # --------------------------------------------------------------------------
@@ -109,7 +153,9 @@ class AttnSpec:
     n_kv_heads: int
     head_dim: int
     qk_norm: bool = False
+    window: Optional[int] = None          # sliding-window size; None = global
     rope_theta: float = 10000.0
+    mrope_sections: Optional[Tuple[int, int, int]] = None
 
     @property
     def group(self) -> int:
@@ -135,7 +181,7 @@ def attn_project_qkv(
     params: Params,
     spec: AttnSpec,
     x: torch.Tensor,                  # (B, S, D)
-    positions: torch.Tensor,          # (B, S)
+    positions: torch.Tensor,          # (B, S) or (B, S, 3) for M-RoPE
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns q (B,S,KVH,G,Hd), k (B,S,KVH,Hd), v (B,S,KVH,Hd), with RoPE
     and optional qk-norm applied."""
@@ -147,8 +193,14 @@ def attn_project_qkv(
     if spec.qk_norm:
         q = rms_norm(params["q_norm"], q)
         k = rms_norm(params["k_norm"], k)
-    q = apply_rope(q, positions[:, :, None, None], theta=spec.rope_theta)
-    k = apply_rope(k, positions[:, :, None], theta=spec.rope_theta)
+    if spec.mrope_sections is not None:
+        q = apply_mrope(q, positions[:, :, None, None, :], spec.mrope_sections,
+                        theta=spec.rope_theta)
+        k = apply_mrope(k, positions[:, :, None, :], spec.mrope_sections,
+                        theta=spec.rope_theta)
+    else:
+        q = apply_rope(q, positions[:, :, None, None], theta=spec.rope_theta)
+        k = apply_rope(k, positions[:, :, None], theta=spec.rope_theta)
     return q, k, v
 
 
@@ -164,15 +216,21 @@ def chunked_causal_attention(
     k: torch.Tensor,                  # (B, S, KVH, Hd)
     v: torch.Tensor,                  # (B, S, KVH, Hd)
     *,
+    window: Optional[int] = None,
     chunk: int = 512,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Flash-style causal attention: O(chunk·S) memory, float32 statistics.
 
     The chunking and the online-softmax update of the reference
-    (``layers.py:188``).  Key chunks after a query chunk are skipped: the
-    reference computes them fully masked, which leaves its running
-    statistics bit-identical (alpha is exactly 1, every p exactly 0)."""
+    (``layers.py:188``); ``window`` enables sliding-window masking (local
+    attention), with the reference's window-limited kv range: query chunk
+    i visits kv chunks ``[i - ceil(window/chunk), i]``.  Key chunks after a
+    query chunk are skipped: the reference computes them fully masked,
+    which leaves its running statistics bit-identical (alpha is exactly 1,
+    every p exactly 0).  So are the clamped duplicates it visits before
+    chunk 0: their garbage statistics are wiped exactly (alpha 0) by the
+    first chunk that holds a valid key."""
     B, S, KVH, G, Hd = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(Hd)
@@ -188,6 +246,10 @@ def chunked_causal_attention(
     vc = v.reshape(B, n_chunks, chunk, KVH, Hd)
     neg = torch.tensor(-1e30, dtype=torch.float32, device=q.device)
     base = torch.arange(chunk, device=q.device)
+    if window is not None and window < n_chunks * chunk:
+        n_kv_steps = min(-(-window // chunk) + 1, n_chunks)
+    else:
+        n_kv_steps = n_chunks
     outs = []
     for i in range(n_chunks):
         q_i = qc[:, i].float() * scale                              # (B,c,KVH,G,Hd)
@@ -195,10 +257,12 @@ def chunked_causal_attention(
         l = torch.zeros((B, KVH, G, chunk), dtype=torch.float32, device=q.device)
         acc = torch.zeros((B, KVH, G, chunk, Hd), dtype=torch.float32, device=q.device)
         q_pos = i * chunk + base
-        for j in range(i + 1):
+        for j in range(max(0, i - n_kv_steps + 1), i + 1):
             s = torch.einsum("bqkgh,bpkh->bkgqp", q_i, kc[:, j].float())
             kv_pos = j * chunk + base
             mask = (q_pos[:, None] >= kv_pos[None, :]) & (kv_pos < S)[None, :]
+            if window is not None:
+                mask &= q_pos[:, None] - kv_pos[None, :] < window
             s = torch.where(mask, s, neg)
             m_next = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_next[..., None])
@@ -235,3 +299,402 @@ def glu_mlp(params: Params, x: torch.Tensor, *, activation: str = "silu") -> tor
     else:
         raise ValueError(activation)
     return (act * up) @ params["w_down"]
+
+
+# --------------------------------------------------------------------------
+# Mixture of Experts (capacity-bounded top-k, dispatch within a batch row)
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    d_model: int
+    d_ff: int
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    activation: str = "silu"
+
+    def capacity(self, tokens_per_group: int) -> int:
+        c = int(math.ceil(tokens_per_group * self.top_k / self.n_experts * self.capacity_factor))
+        return max(8, -(-c // 8) * 8)  # round up to 8 for tile alignment
+
+
+def moe_init(gen: torch.Generator, spec: MoESpec, dtype, device) -> Params:
+    s_in = 1.0 / math.sqrt(spec.d_model)
+    s_out = 1.0 / math.sqrt(spec.d_ff)
+    E, d, f = spec.n_experts, spec.d_model, spec.d_ff
+    return {
+        "router": _normal(gen, (d, E), s_in, torch.float32, device),
+        "w_gate": _normal(gen, (E, d, f), s_in, dtype, device),
+        "w_up": _normal(gen, (E, d, f), s_in, dtype, device),
+        "w_down": _normal(gen, (E, f, d), s_out, dtype, device),
+    }
+
+
+def _moe_route(params: Params, spec: MoESpec, x: torch.Tensor):
+    """Router + capacity positions for each batch row's token group.
+
+    x (B, T, D).  Returns gate values (B, T, K), the flat (token-major)
+    expert ids and capacity slots (B, T*K), the keep mask (B, T*K), the
+    per-row aux loss (B,) and the capacity C; slot C is the drop slot."""
+    B, T, _ = x.shape
+    E, K = spec.n_experts, spec.top_k
+    C = spec.capacity(T)
+    logits = x.float() @ params["router"]                          # (B,T,E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_ids = torch.topk(probs, K, dim=-1)           # (B,T,K)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    # Switch-style load-balance aux
+    density = torch.nn.functional.one_hot(expert_ids[..., 0], E).float().mean(dim=1)
+    aux = (density * probs.mean(dim=1)).sum(dim=-1) * E            # (B,)
+    # position within each expert's capacity, in token-major (t, k) order
+    sel = torch.nn.functional.one_hot(expert_ids.reshape(B, T * K), E)   # (B,T*K,E)
+    pos = ((sel.cumsum(dim=1) - sel) * sel).sum(dim=-1)            # (B,T*K)
+    flat_e = expert_ids.reshape(B, T * K)
+    keep = pos < C
+    flat_p = torch.where(keep, pos, torch.full_like(pos, C))
+    return gate_vals, flat_e, flat_p, keep, aux, C
+
+
+def _moe_dispatch(x: torch.Tensor, flat_e, flat_p, E: int, C: int) -> torch.Tensor:
+    """(B,T,D) tokens -> (B,E,C,D) capacity slots (scatter within a row);
+    dropped assignments land in slot C, which is cut off."""
+    B, T, D = x.shape
+    K = flat_e.shape[1] // T
+    rows = torch.arange(B, device=x.device)[:, None]
+    token_idx = torch.arange(T, device=x.device).repeat_interleave(K)
+    buf = torch.zeros((B, E, C + 1, D), dtype=x.dtype, device=x.device)
+    buf[rows, flat_e, flat_p] = x[:, token_idx]
+    return buf[:, :, :C]
+
+
+def _moe_combine(h, flat_e, flat_p, gate_vals, keep, T: int) -> torch.Tensor:
+    """(B,E',C,D) expert outputs -> (B,T,D) weighted combine (gather within
+    a row).  ``flat_e`` indexes h's expert axis."""
+    B, _, C, D = h.shape
+    K = flat_e.shape[1] // T
+    rows = torch.arange(B, device=h.device)[:, None]
+    safe_p = flat_p.clamp_max(C - 1)
+    picked = h[rows, flat_e, safe_p].reshape(B, T, K, D)
+    w = (gate_vals * keep.reshape(B, T, K).to(gate_vals.dtype)).to(picked.dtype)
+    return torch.einsum("btkd,btk->btd", picked, w)
+
+
+def _moe_expert_ffn(dispatched, w_gate, w_up, w_down, activation: str) -> torch.Tensor:
+    """(B,E',C,D) slots through E' experts' GLU FFNs (weights (E',D,F) and
+    (E',F,D)) -> (B,E',C,D); one batched product per weight, all rows of an
+    expert together."""
+    B, E, C, D = dispatched.shape
+    xs = dispatched.transpose(0, 1).reshape(E, B * C, D)
+    h_gate = torch.bmm(xs, w_gate)
+    h_up = torch.bmm(xs, w_up)
+    if activation == "silu":
+        act = torch.nn.functional.silu(h_gate)
+    else:
+        act = torch.nn.functional.gelu(h_gate, approximate="tanh")
+    out = torch.bmm(act * h_up, w_down)                            # (E',B*C,D)
+    return out.reshape(E, B, C, D).transpose(0, 1)
+
+
+def moe_apply(params: Params, spec: MoESpec, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-bounded top-k MoE; returns (out (B,S,D), aux_loss ()).
+
+    The reference's local path (``layers.py:418``): each batch row is one
+    token group, dispatched into per-expert capacity slots, run through
+    every expert's FFN (empty slots give exact zeros) and combined with its
+    gate weights."""
+    T = x.shape[1]
+    gate_vals, flat_e, flat_p, keep, aux, C = _moe_route(params, spec, x)
+    dispatched = _moe_dispatch(x, flat_e, flat_p, spec.n_experts, C)
+    h = _moe_expert_ffn(dispatched, params["w_gate"], params["w_up"], params["w_down"],
+                        spec.activation)
+    out = _moe_combine(h, flat_e, flat_p, gate_vals, keep, T)
+    return out.to(x.dtype), aux.mean()
+
+
+# --------------------------------------------------------------------------
+# Mamba (S6 selective SSM) — chunked linear recurrence
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class MambaSpec:
+    d_model: int
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return max(1, self.d_model // 16)
+
+
+def mamba_init(gen: torch.Generator, spec: MambaSpec, dtype, device) -> Params:
+    d, di, ds, dr = spec.d_model, spec.d_inner, spec.d_state, spec.dt_rank
+    s = 1.0 / math.sqrt(d)
+    si = 1.0 / math.sqrt(di)
+    u = torch.rand((di,), generator=gen, device=device, dtype=torch.float32)
+    log_dt = math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3))
+    return {
+        "w_in": _normal(gen, (d, 2 * di), s, dtype, device),
+        "conv_w": _normal(gen, (spec.d_conv, di), 0.5, dtype, device),
+        "conv_b": torch.zeros((di,), dtype=dtype, device=device),
+        "w_x_dbc": _normal(gen, (di, dr + 2 * ds), si, dtype, device),
+        "w_dt": _normal(gen, (dr, di), 1.0 / math.sqrt(dr), dtype, device),
+        "dt_bias": torch.log(torch.expm1(torch.exp(log_dt))),
+        "A_log": torch.log(torch.arange(1, ds + 1, dtype=torch.float32, device=device))
+        .expand(di, ds).contiguous(),
+        "D": torch.ones((di,), dtype=torch.float32, device=device),
+        "w_out": _normal(gen, (di, d), si, dtype, device),
+    }
+
+
+def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inclusive scan of the recurrence h_t = a_t h_{t-1} + b_t along axis
+    1: returns (prod_{s<=t} a_s, h_t from h_{-1} = 0).
+
+    A Hillis–Steele doubling scan of the reference's ``combine`` (its
+    ``lax.associative_scan``, ``layers.py:593``): log2(L) passes, each
+    combining every element with the one ``d`` steps before it.  The
+    value at t depends only on elements <= t, so padding past the end
+    changes nothing before it; the products group differently from the
+    reference's tree, so results agree up to float rounding."""
+    L = a.shape[1]
+    d = 1
+    while d < L:
+        b = torch.cat([b[:, :d], b[:, :-d] * a[:, d:] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], dim=1)
+        d *= 2
+    return a, b
+
+
+def _mamba_inner(params: Params, spec: MambaSpec, xz: torch.Tensor, conv_state, ssm_state,
+                 *, chunk: int = 256):
+    """Core selective scan. xz: (B, S, 2*d_inner).  Returns (y, conv_state,
+    ssm_state).  A sequence shorter than ``chunk`` (a decode step) is one
+    chunk of its own length."""
+    B, S, _ = xz.shape
+    di, ds = spec.d_inner, spec.d_state
+    x, z = xz.chunk(2, dim=-1)                                     # (B,S,di)
+
+    # causal depthwise conv with carried state (d_conv-1 trailing inputs)
+    dc = spec.d_conv
+    x_pad = torch.cat([conv_state.to(x.dtype), x], dim=1)          # (B, S+dc-1, di)
+    new_conv_state = x_pad[:, x_pad.shape[1] - (dc - 1):]
+    conv_w = params["conv_w"].float()
+    xc = sum(x_pad[:, i : i + S].float() * conv_w[i] for i in range(dc))
+    xc = torch.nn.functional.silu(xc + params["conv_b"].float())   # (B,S,di)
+
+    dbc = (xc.to(x.dtype) @ params["w_x_dbc"]).float()
+    dt_in, Bmat, Cmat = torch.split(dbc, [spec.dt_rank, ds, ds], dim=-1)
+    dt = torch.nn.functional.softplus(
+        (dt_in.to(x.dtype) @ params["w_dt"]).float() + params["dt_bias"]
+    )                                                              # (B,S,di)
+    A = -torch.exp(params["A_log"])                                # (di,ds)
+
+    # chunked linear recurrence h_t = a_t h_{t-1} + bx_t; padded steps have
+    # dt = 0, so a = 1 and bx = 0 and the state passes through unchanged
+    chunk = min(chunk, S)
+    n_chunks = -(-S // chunk)
+    pad = n_chunks * chunk - S
+    if pad:
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        Bmat = torch.nn.functional.pad(Bmat, (0, 0, 0, pad))
+        Cmat = torch.nn.functional.pad(Cmat, (0, 0, 0, pad))
+        xc = torch.nn.functional.pad(xc, (0, 0, 0, pad))
+    h = ssm_state                                                  # (B,di,ds)
+    ys = []
+    for c in range(n_chunks):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        dt_k, B_k, C_k, xc_k = dt[:, sl], Bmat[:, sl], Cmat[:, sl], xc[:, sl]
+        a_c = torch.exp(dt_k[..., None] * A)                       # (B,chunk,di,ds)
+        bx_c = (dt_k * xc_k)[..., None] * B_k[:, :, None, :]
+        a_sc, b_sc = _linear_scan(a_c, bx_c)
+        hs = a_sc * h[:, None] + b_sc                              # (B,chunk,di,ds)
+        ys.append((hs * C_k[:, :, None, :]).sum(dim=-1))           # readout folded in
+        h = hs[:, -1]
+    y = torch.cat(ys, dim=1)[:, :S]                                # (B,S,di)
+    y = y + params["D"] * xc[:, :S]
+    y = y * torch.nn.functional.silu(z.float())
+    return y.to(xz.dtype), new_conv_state, h
+
+
+def mamba_apply(params: Params, spec: MambaSpec, x: torch.Tensor, state=None, *, chunk: int = 256):
+    """x: (B,S,D) -> (y, new_state).  state = (conv_state, ssm_state)."""
+    if state is None:
+        state = mamba_init_state(spec, x.shape[0], x.dtype, x.device)
+    conv_state, ssm_state = state
+    xz = x @ params["w_in"]
+    y, conv_state, ssm_state = _mamba_inner(params, spec, xz, conv_state, ssm_state, chunk=chunk)
+    return y @ params["w_out"], (conv_state, ssm_state)
+
+
+def mamba_init_state(spec: MambaSpec, batch: int, dtype, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    conv = torch.zeros((batch, spec.d_conv - 1, spec.d_inner), dtype=dtype, device=device)
+    ssm = torch.zeros((batch, spec.d_inner, spec.d_state), dtype=torch.float32, device=device)
+    return conv, ssm
+
+
+# --------------------------------------------------------------------------
+# xLSTM blocks: mLSTM (matrix memory, chunkwise) and sLSTM (scalar, loop)
+# --------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class XLSTMSpec:
+    d_model: int
+    n_heads: int
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+
+def mlstm_init(gen: torch.Generator, spec: XLSTMSpec, dtype, device) -> Params:
+    d, H, Hd = spec.d_model, spec.n_heads, spec.head_dim
+    s = 1.0 / math.sqrt(d)
+    b_if = torch.zeros((H, 2), dtype=torch.float32, device=device)
+    b_if[:, 1] = 3.0
+    return {
+        "wq": _normal(gen, (d, H, Hd), s, dtype, device),
+        "wk": _normal(gen, (d, H, Hd), s, dtype, device),
+        "wv": _normal(gen, (d, H, Hd), s, dtype, device),
+        "w_if": _normal(gen, (d, H, 2), s, torch.float32, device),
+        "b_if": b_if,
+        "wo": _normal(gen, (H, Hd, d), 1.0 / math.sqrt(d), dtype, device),
+        "out_norm": make_norm("rms", Hd, dtype, device),
+    }
+
+
+def mlstm_apply(params: Params, spec: XLSTMSpec, x: torch.Tensor, state=None, *, chunk: int = 128):
+    """Chunkwise mLSTM (matrix memory C, normalizer n, max-stabilizer m).
+
+    Within a chunk: quadratic (attention-like) path with a log-space decay
+    matrix.  Across chunks: recurrent (C, n, m) carry — O(1) state per
+    head.  A sequence shorter than ``chunk`` (a decode step) is one chunk
+    of its own length; padded steps have log input gate -1e30 and log
+    forget gate 0, so they add nothing to the state.
+    x: (B,S,D) -> (y, new_state)."""
+    B, S, D = x.shape
+    H, Hd = spec.n_heads, spec.head_dim
+    if state is None:
+        state = mlstm_init_state(spec, B, x.device)
+    C_prev, n_prev, m_prev = state                            # (B,H,Hd,Hd),(B,H,Hd),(B,H)
+
+    def heads(w):
+        return (x @ w.reshape(D, -1)).reshape(B, S, H, -1).float()
+
+    q = heads(params["wq"]) / math.sqrt(Hd)
+    k = heads(params["wk"])
+    v = heads(params["wv"])
+    if_ = (x.float() @ params["w_if"].reshape(D, -1)).reshape(B, S, H, 2) + params["b_if"]
+    log_i = -torch.nn.functional.softplus(-if_[..., 0])       # (B,S,H)
+    log_f = -torch.nn.functional.softplus(-if_[..., 1])
+
+    L = min(chunk, S)
+    n_chunks = -(-S // L)
+    pad = n_chunks * L - S
+    if pad:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad))
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        log_i = torch.nn.functional.pad(log_i, (0, 0, 0, pad), value=-1e30)
+        log_f = torch.nn.functional.pad(log_f, (0, 0, 0, pad))
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    ys = []
+    for c in range(n_chunks):
+        sl = slice(c * L, (c + 1) * L)
+        q_c, k_c, v_c, li_c, lf_c = q[:, sl], k[:, sl], v[:, sl], log_i[:, sl], log_f[:, sl]
+        b_dec = lf_c.cumsum(dim=1)                            # (B,L,H) decay from chunk start
+        # intra-chunk log weights: D[t,s] = sum_{s<r<=t} f_r + i_s
+        log_D = b_dec[:, :, None, :] - b_dec[:, None, :, :] + li_c[:, None, :, :]  # (B,t,s,H)
+        log_D = log_D.masked_fill(~tri[None, :, :, None], -math.inf)
+        # stabilizer: m_t = max(m_prev + cumf, max_s log_D[t,s])
+        m_inter = m_prev[:, None, :] + b_dec                  # (B,L,H)
+        m_t = torch.maximum(m_inter, log_D.amax(dim=2)).clamp_min(-1e30)
+
+        # inter-chunk contribution: q_t · C_prev, scaled exp(m_prev + cumf - m_t)
+        w_inter = torch.exp(m_inter - m_t)
+        y_inter = torch.einsum("blhe,bhef->blhf", q_c, C_prev) * w_inter[..., None]
+        n_inter = torch.einsum("blhe,bhe->blh", q_c, n_prev) * w_inter
+
+        # intra-chunk: scores q_t·k_s with weight exp(log_D - m_t)
+        sw = torch.einsum("blhe,bshe->blsh", q_c, k_c) * torch.exp(log_D - m_t[:, :, None, :])
+        y_intra = torch.einsum("blsh,bshf->blhf", sw, v_c)
+        n_intra = sw.sum(dim=2)                               # (B,L,H)
+
+        denom = torch.maximum((n_inter + n_intra).abs(), torch.exp(-m_t))
+        ys.append((y_inter + y_intra) / denom[..., None])     # (B,L,H,Hd)
+
+        # state update to end of chunk
+        f_total = b_dec[:, -1]                                # (B,H)
+        tail = li_c + (f_total[:, None] - b_dec)              # i_s + f_{s+1..L}
+        m_next = torch.maximum(m_prev + f_total, tail.amax(dim=1))
+        w_kv = torch.exp(tail - m_next[:, None])              # (B,L,H)
+        carry = torch.exp(m_prev + f_total - m_next)
+        C_prev = C_prev * carry[..., None, None] + torch.einsum(
+            "blhe,blhf->bhef", k_c * w_kv[..., None], v_c)
+        n_prev = n_prev * carry[..., None] + torch.einsum("blhe,blh->bhe", k_c, w_kv)
+        m_prev = m_next
+    y = torch.cat(ys, dim=1)[:, :S]
+    y = rms_norm(params["out_norm"], y.to(x.dtype))
+    out = y.reshape(B, S, -1) @ params["wo"].reshape(H * Hd, D)
+    return out, (C_prev, n_prev, m_prev)
+
+
+def mlstm_init_state(spec: XLSTMSpec, batch: int, device):
+    H, Hd = spec.n_heads, spec.head_dim
+    return (
+        torch.zeros((batch, H, Hd, Hd), dtype=torch.float32, device=device),
+        torch.zeros((batch, H, Hd), dtype=torch.float32, device=device),
+        torch.full((batch, H), -1e30, dtype=torch.float32, device=device),
+    )
+
+
+def slstm_init(gen: torch.Generator, spec: XLSTMSpec, dtype, device) -> Params:
+    d = spec.d_model
+    s = 1.0 / math.sqrt(d)
+    b_gates = torch.zeros((4 * d,), dtype=torch.float32, device=device)
+    b_gates[2 * d : 3 * d] = 3.0
+    return {
+        "w_gates": _normal(gen, (d, 4 * d), s, dtype, device),
+        "r_gates": _normal(gen, (d, 4 * d), s * 0.5, dtype, device),
+        "b_gates": b_gates,
+        "w_out": _normal(gen, (d, d), s, dtype, device),
+    }
+
+
+def slstm_apply(params: Params, spec: XLSTMSpec, x: torch.Tensor, state=None):
+    """sLSTM with exponential gating + (c, n, m, h) stabilized state.
+
+    A sequential loop over time (scalar state), as in the paper.
+    x: (B,S,D) -> (y, new_state)."""
+    B, S, D = x.shape
+    if state is None:
+        state = slstm_init_state(spec, B, x.device)
+    c, n, m, h = state
+    wx = (x @ params["w_gates"]).float()                     # (B,S,4D)
+    hs = []
+    for t in range(S):
+        rec = (h.to(x.dtype) @ params["r_gates"]).float()
+        g = wx[:, t] + rec + params["b_gates"]
+        zi, ii, fi, oi = g.chunk(4, dim=-1)
+        z = torch.tanh(zi)
+        o = torch.sigmoid(oi)
+        log_f = -torch.nn.functional.softplus(-fi)
+        m_new = torch.maximum(log_f + m, ii)
+        i_g = torch.exp(ii - m_new)
+        f_g = torch.exp(log_f + m - m_new)
+        c = f_g * c + i_g * z
+        n = f_g * n + i_g
+        m = m_new
+        h = o * c / n.abs().clamp_min(1.0)
+        hs.append(h)
+    y = torch.stack(hs, dim=1).to(x.dtype)                   # (B,S,D)
+    return y @ params["w_out"], (c, n, m, h)
+
+
+def slstm_init_state(spec: XLSTMSpec, batch: int, device):
+    D = spec.d_model
+    z = torch.zeros((batch, D), dtype=torch.float32, device=device)
+    return (z, z.clone(), torch.full((batch, D), -1e30, dtype=torch.float32, device=device),
+            z.clone())

@@ -1,4 +1,4 @@
-"""Pattern-based model for the dense architectures, ported from the JAX
+"""Pattern-based model builder for every architecture, ported from the JAX
 package's ``models/model.py``.
 
 A model is a stack of *stages*; each stage repeats a *period* of layers
@@ -6,26 +6,31 @@ A model is a stack of *stages*; each stage repeats a *period* of layers
 package's ``lax.scan`` layout; here a Python loop over the stacked
 params).  A layer is a tuple of sublayers, each pre-normed + residual:
 
-    attn    GQA attention (qk-norm, 1-D RoPE)
-    mlp     GLU MLP (SwiGLU / GeGLU)
+    attn / attn_local   GQA attention (qk-norm, RoPE / M-RoPE, sliding window)
+    mlp                 GLU MLP (SwiGLU / GeGLU)
+    moe                 capacity-bounded top-k mixture of experts
+    mamba               S6 selective SSM (chunked doubling scan)
+    mlstm / slstm       xLSTM blocks
 
-Two modes share one code path:
+Three modes share one code path:
 
-    prefill  — chunked causal attention over the prompt, K/V written to the
-               cache
+    train    — ``forward``: the whole sequence, no cache (no backward pass
+               in this package yet)
+    prefill  — as train, but K/V and recurrent states written to the cache
     decode   — one token per sequence, reading and writing the cache
 
-A cache is either *dense* (``init_cache``: ``(N_periods, B, max_seq, KVH,
-Hd)`` K/V tensors per attention sublayer) or *paged* (built by
-``serve.Engine``: the page pool's stacked ``(N_periods, P, psz, KVH, Hd)``
-K/V tensors plus a page table).  Cache writes are in place, where the JAX
-package rebinds donated arrays.  Paged decode reads K/V through the
-``paged_attention`` kernel.
-
-Not ported in this package yet: training (``forward``/``loss_fn``), the
-sliding-window ``attn_local`` layers with their ring buffer and paged
-window fix, M-RoPE, and the moe/mamba/mlstm/slstm sublayers.  A config
-that uses one raises ``ValueError(kind)``.
+A cache is either *dense* (``init_cache``: per sublayer, tensors stacked
+over periods, ``(N_periods, B, ...)``: K/V of ``max_seq`` positions, an
+``attn_local`` ring buffer of ``window`` positions, or a recurrent state)
+or *paged* (built by ``serve.Engine``: the page pool's stacked ``(N_periods,
+P, psz, KVH, Hd)`` K/V tensors plus a page table, and the sessions'
+recurrent states).  Cache writes are in place, where the JAX package
+rebinds donated arrays: K/V into the pool or dense cache, and a recurrent
+sublayer's new state into its period's slot of the stacked entry, which
+must therefore belong to this call alone (the engine builds it afresh for
+every step).  Paged decode reads global layers' K/V through the
+``paged_attention`` kernel and local layers' through a masked gather
+(``_paged_window_fix``).
 """
 from __future__ import annotations
 
@@ -42,18 +47,49 @@ from . import layers as L
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
 
-__all__ = ["Model", "Params", "Cache"]
+__all__ = ["Model", "Params", "Cache", "RECURRENT_KINDS"]
+
+RECURRENT_KINDS = ("mamba", "mlstm", "slstm")
 
 
-def _attn_spec(cfg: ModelConfig) -> L.AttnSpec:
+# --------------------------------------------------------------------------
+# Sublayer dispatch
+# --------------------------------------------------------------------------
+def _attn_spec(cfg: ModelConfig, kind: str) -> L.AttnSpec:
     return L.AttnSpec(
         d_model=cfg.d_model,
         n_heads=cfg.n_heads,
         n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim,
         qk_norm=cfg.qk_norm,
+        window=cfg.window if kind == "attn_local" else None,
         rope_theta=cfg.rope_theta,
+        mrope_sections=cfg.mrope_sections,
     )
+
+
+def _moe_spec(cfg: ModelConfig) -> L.MoESpec:
+    return L.MoESpec(
+        d_model=cfg.d_model,
+        d_ff=cfg.moe_d_ff,
+        n_experts=cfg.n_experts,
+        top_k=cfg.top_k,
+        capacity_factor=cfg.capacity_factor,
+        activation=cfg.activation,
+    )
+
+
+def _mamba_spec(cfg: ModelConfig) -> L.MambaSpec:
+    return L.MambaSpec(
+        d_model=cfg.d_model,
+        d_state=cfg.mamba_d_state,
+        d_conv=cfg.mamba_d_conv,
+        expand=cfg.mamba_expand,
+    )
+
+
+def _xlstm_spec(cfg: ModelConfig) -> L.XLSTMSpec:
+    return L.XLSTMSpec(d_model=cfg.d_model, n_heads=cfg.n_heads)
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -84,27 +120,109 @@ def _empty_stacked(tree: Any, n: int) -> Any:
 def _init_sublayer(kind: str, gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     dtype = _dtype(cfg.param_dtype)
     params: Params = {"norm": L.make_norm(cfg.norm, cfg.d_model, dtype, device)}
-    if kind == "attn":
-        params["body"] = L.attn_init(gen, _attn_spec(cfg), dtype, device)
+    if kind in ("attn", "attn_local"):
+        params["body"] = L.attn_init(gen, _attn_spec(cfg, kind), dtype, device)
     elif kind == "mlp":
         params["body"] = L.glu_mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device)
+    elif kind == "moe":
+        params["body"] = L.moe_init(gen, _moe_spec(cfg), dtype, device)
+    elif kind == "mamba":
+        params["body"] = L.mamba_init(gen, _mamba_spec(cfg), dtype, device)
+    elif kind == "mlstm":
+        params["body"] = L.mlstm_init(gen, _xlstm_spec(cfg), dtype, device)
+    elif kind == "slstm":
+        params["body"] = L.slstm_init(gen, _xlstm_spec(cfg), dtype, device)
     else:
         raise ValueError(kind)
     return params
 
 
+def init_cache_entry(
+    kind: str, cfg: ModelConfig, batch: int, max_seq: int, device
+) -> Optional[Dict[str, torch.Tensor]]:
+    """One sublayer's cache for ``batch`` sequences (fresh tensors), or
+    None for a stateless sublayer (mlp, moe)."""
+    dtype = _dtype(cfg.dtype)
+    KVH, Hd = cfg.n_kv_heads, cfg.head_dim
+    if kind in ("attn", "attn_local"):
+        W = max_seq if kind == "attn" else min(cfg.window or max_seq, max_seq)
+        return {
+            "k": torch.zeros((batch, W, KVH, Hd), dtype=dtype, device=device),
+            "v": torch.zeros((batch, W, KVH, Hd), dtype=dtype, device=device),
+        }
+    if kind == "mamba":
+        conv, ssm = L.mamba_init_state(_mamba_spec(cfg), batch, dtype, device)
+        return {"conv": conv, "ssm": ssm}
+    if kind == "mlstm":
+        C, n, m = L.mlstm_init_state(_xlstm_spec(cfg), batch, device)
+        return {"C": C, "n": n, "m": m}
+    if kind == "slstm":
+        c, n, m, h = L.slstm_init_state(_xlstm_spec(cfg), batch, device)
+        return {"c": c, "n": n, "m": m, "h": h}
+    return None
+
+
+def stacked_cache_entry(kind: str, cfg: ModelConfig, n_periods: int, batch: int,
+                        max_seq: int, device) -> Optional[Dict[str, torch.Tensor]]:
+    """``init_cache_entry`` repeated over ``n_periods`` periods:
+    ``(N, batch, ...)`` tensors of their own (written in place)."""
+    entry = init_cache_entry(kind, cfg, batch, max_seq, device)
+    if entry is None:
+        return None
+    return {k: v.unsqueeze(0).repeat((n_periods,) + (1,) * v.dim()) for k, v in entry.items()}
+
+
+def _positions_for(cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
+    """pos (B,S) -> RoPE positions; M-RoPE text mode replicates over axes."""
+    if cfg.mrope_sections is not None:
+        return torch.stack([pos, pos, pos], dim=-1)
+    return pos
+
+
 # --------------------------------------------------------------------------
 # Attention over caches (decode path)
 # --------------------------------------------------------------------------
+def _masked_softmax_attend(q, k, v, mask, scale, eq_s: str, eq_o: str):
+    """float32 scores of ``q * scale`` against ``k``, masked to -1e30,
+    softmax over the key axis, values; in q's dtype."""
+    s = torch.einsum(eq_s, q.float() * scale, k.float())
+    s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum(eq_o, p, v.float()).to(q.dtype)
+
+
 def _decode_attend_full(q, cache_k, cache_v, lens, scale):
     """q (B,1,KVH,G,Hd); cache (B,S,KVH,Hd); lens (B,) incl. current token."""
-    s = torch.einsum("bqkgh,bskh->bkgqs", q.float() * scale, cache_k.float())
     S = cache_k.shape[1]
     mask = torch.arange(S, device=q.device)[None, :] < lens[:, None]      # (B,S)
-    s = torch.where(mask[:, None, None, None, :], s, torch.tensor(-1e30, device=q.device))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqs,bskh->bqkgh", p, cache_v.float())
-    return out.to(q.dtype)
+    return _masked_softmax_attend(q, cache_k, cache_v, mask[:, None, None, None, :], scale,
+                                  "bqkgh,bskh->bkgqs", "bkgqs,bskh->bqkgh")
+
+
+def _decode_attend_ring(q, cache_k, cache_v, lens, scale):
+    """Ring-buffer attention: slot j valid iff it holds a position in
+    (len-window, len), i.e. iff it was written."""
+    W = cache_k.shape[1]
+    filled = torch.clamp(lens[:, None], max=W)                             # slots written
+    mask = torch.arange(W, device=q.device)[None, :] < filled
+    return _masked_softmax_attend(q, cache_k, cache_v, mask[:, None, None, None, :], scale,
+                                  "bqkgh,bskh->bkgqs", "bkgqs,bskh->bqkgh")
+
+
+def _paged_window_fix(q, pk, pv, table, lens, window, scale):
+    """Sliding-window attention over the paged pool (mask-based): the pool
+    keeps the whole history, so the window is enforced by the mask.
+    q (B,KVH,G,Hd); lens (B,) incl. the current token."""
+    k = pk[table.long()]                                                  # (B,maxp,psz,KVH,Hd)
+    v = pv[table.long()]
+    B, maxp, psz = k.shape[:3]
+    S = maxp * psz
+    k = k.reshape(B, S, k.shape[3], k.shape[4])
+    v = v.reshape(B, S, v.shape[3], v.shape[4])
+    posn = torch.arange(S, device=q.device)[None, :]
+    mask = (posn < lens[:, None]) & (posn >= (lens - window)[:, None])
+    return _masked_softmax_attend(q, k, v, mask[:, None, None, :], scale,
+                                  "bkgh,bskh->bkgs", "bkgs,bskh->bkgh")
 
 
 def _full_write(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
@@ -113,8 +231,14 @@ def _full_write(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> No
     cache[rows, pos.long()] = new[:, 0].to(cache.dtype)
 
 
+def _ring_write(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> None:
+    """cache[b, pos[b] % W] = new[b, 0], in place."""
+    _full_write(cache, new, pos % cache.shape[1])
+
+
 def _apply_attn_paged(
     body: Params,
+    spec: L.AttnSpec,
     q: torch.Tensor,                  # (B,S,KVH,G,Hd)
     k: torch.Tensor,                  # (B,S,KVH,Hd)
     v: torch.Tensor,
@@ -138,10 +262,13 @@ def _apply_attn_paged(
         slot = (lens % psz).long()
         pk[page, slot] = k[:, 0].to(pk.dtype)
         pv[page, slot] = v[:, 0].to(pv.dtype)
-        ctx = kops.paged_attention(q[:, 0].contiguous(), pk, pv, table, lens + 1, scale=scale)
+        if spec.window is not None:
+            ctx = _paged_window_fix(q[:, 0], pk, pv, table, lens + 1, spec.window, scale)
+        else:
+            ctx = kops.paged_attention(q[:, 0].contiguous(), pk, pv, table, lens + 1, scale=scale)
         ctx = ctx[:, None]                                            # (B,1,KVH,G,Hd)
     else:  # prefill: compute causally, then scatter K/V into the pages
-        ctx = L.chunked_causal_attention(q, k, v, scale=scale)
+        ctx = L.chunked_causal_attention(q, k, v, window=spec.window, scale=scale)
         n_pages = -(-S // psz)
         pad = n_pages * psz - S
         if pad:
@@ -155,38 +282,72 @@ def _apply_attn_paged(
     return L.attn_output(body, ctx)
 
 
+def _apply_attn(kind, params, cfg, h, pos, mode, cache, lens) -> torch.Tensor:
+    spec = _attn_spec(cfg, kind)
+    q, k, v = L.attn_project_qkv(params["body"], spec, h, _positions_for(cfg, pos))
+    scale = 1.0 / math.sqrt(spec.head_dim)
+    if cache is not None and "pk" in cache:
+        return _apply_attn_paged(params["body"], spec, q, k, v, mode, cache, lens, scale)
+    if mode == "decode":
+        assert cache is not None and lens is not None
+        if kind == "attn_local":
+            _ring_write(cache["k"], k, lens)
+            _ring_write(cache["v"], v, lens)
+            ctx = _decode_attend_ring(q, cache["k"], cache["v"], lens + 1, scale)
+        else:
+            _full_write(cache["k"], k, lens)
+            _full_write(cache["v"], v, lens)
+            ctx = _decode_attend_full(q, cache["k"], cache["v"], lens + 1, scale)
+    else:
+        ctx = L.chunked_causal_attention(q, k, v, window=spec.window, scale=scale)
+        if mode == "prefill":
+            assert cache is not None
+            S = k.shape[1]
+            if kind == "attn_local":
+                W = cache["k"].shape[1]
+                take = min(W, S)
+                idx = torch.arange(S - take, S, device=k.device) % W
+                cache["k"][:, idx] = k[:, S - take:].to(cache["k"].dtype)
+                cache["v"][:, idx] = v[:, S - take:].to(cache["v"].dtype)
+            else:
+                cache["k"][:, :S] = k.to(cache["k"].dtype)
+                cache["v"][:, :S] = v.to(cache["v"].dtype)
+    return L.attn_output(params["body"], ctx)
+
+
 def _apply_sublayer(
     kind: str,
     params: Params,
     cfg: ModelConfig,
     x: torch.Tensor,                  # (B,S,D)
     pos: torch.Tensor,                # (B,S) absolute positions
-    mode: str,                        # prefill | decode
+    mode: str,                        # train | prefill | decode
     cache: Optional[Dict[str, torch.Tensor]],
     lens: Optional[torch.Tensor],     # (B,) tokens already in cache (decode)
-) -> torch.Tensor:
-    """Returns the residual delta; cache entries are updated in place."""
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]], Optional[torch.Tensor]]:
+    """Returns (residual delta, new recurrent state or None, aux loss or
+    None).  Attention caches are updated in place; a recurrent state is
+    returned as new tensors, never written through ``cache``."""
     h = L.apply_norm(cfg.norm, params["norm"], x)
-    if kind == "attn":
-        spec = _attn_spec(cfg)
-        q, k, v = L.attn_project_qkv(params["body"], spec, h, pos)
-        scale = 1.0 / math.sqrt(spec.head_dim)
-        if cache is not None and "pk" in cache:
-            return _apply_attn_paged(params["body"], q, k, v, mode, cache, lens, scale)
-        assert cache is not None
-        if mode == "decode":
-            assert lens is not None
-            _full_write(cache["k"], k, lens)
-            _full_write(cache["v"], v, lens)
-            ctx = _decode_attend_full(q, cache["k"], cache["v"], lens + 1, scale)
-        else:
-            ctx = L.chunked_causal_attention(q, k, v, scale=scale)
-            S = k.shape[1]
-            cache["k"][:, :S] = k.to(cache["k"].dtype)
-            cache["v"][:, :S] = v.to(cache["v"].dtype)
-        return L.attn_output(params["body"], ctx)
+    if kind in ("attn", "attn_local"):
+        return _apply_attn(kind, params, cfg, h, pos, mode, cache, lens), None, None
     if kind == "mlp":
-        return L.glu_mlp(params["body"], h, activation=cfg.activation)
+        return L.glu_mlp(params["body"], h, activation=cfg.activation), None, None
+    if kind == "moe":
+        out, aux = L.moe_apply(params["body"], _moe_spec(cfg), h)
+        return out, None, aux
+    if kind == "mamba":
+        state = (cache["conv"], cache["ssm"]) if cache is not None else None
+        out, (conv, ssm) = L.mamba_apply(params["body"], _mamba_spec(cfg), h, state)
+        return out, {"conv": conv, "ssm": ssm}, None
+    if kind == "mlstm":
+        state = (cache["C"], cache["n"], cache["m"]) if cache is not None else None
+        out, (C, n, m) = L.mlstm_apply(params["body"], _xlstm_spec(cfg), h, state)
+        return out, {"C": C, "n": n, "m": m}, None
+    if kind == "slstm":
+        state = (cache["c"], cache["n"], cache["m"], cache["h"]) if cache is not None else None
+        out, (c, n, m, hh) = L.slstm_apply(params["body"], _xlstm_spec(cfg), h, state)
+        return out, {"c": c, "n": n, "m": m, "h": hh}, None
     raise ValueError(kind)
 
 
@@ -194,7 +355,7 @@ def _apply_sublayer(
 # Model
 # --------------------------------------------------------------------------
 class Model:
-    """One dense architecture config with its weights on one device.
+    """One architecture config with its weights on one device.
 
     ``device=None`` means the card (raises without one); pass
     ``device="cpu"`` to run on the CPU.  ``params`` is the JAX package's
@@ -243,7 +404,12 @@ class Model:
 
     # ------------------------------------------------------------ embedding
     def _embed(self, inputs: torch.Tensor) -> torch.Tensor:
-        x = self.params["embed"][inputs.long()].to(self.dtype)
+        """Token ids (B, S), or precomputed embeddings (B, S, D) for an
+        ``input_mode="embeddings"`` config."""
+        if self.cfg.input_mode == "embeddings" and inputs.dim() == 3:
+            x = inputs.to(self.dtype)
+        else:
+            x = self.params["embed"][inputs.long()].to(self.dtype)
         if self.cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=self.dtype, device=x.device)
         return x
@@ -253,55 +419,75 @@ class Model:
         return x.float() @ head.float().T
 
     def _run_stages(self, x, pos, mode, cache, lens):
+        """Every stage's periods over ``x``; a recurrent sublayer's new state
+        goes into its period's slot of the cache's stacked entry.  Returns
+        (normed hidden, summed aux loss)."""
         cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, stage in enumerate(cfg.stages):
             stage_params = self.params[f"stage{i}"]
-            stage_cache = cache[f"stage{i}"]
+            stage_cache = cache[f"stage{i}"] if cache is not None else None
             for r in range(stage.n_periods):
                 period_params = _index(stage_params, r)
-                period_cache = _index(stage_cache, r)
+                period_cache = _index(stage_cache, r) if stage_cache is not None else {}
                 for li, layer in enumerate(stage.period):
                     for si, kind in enumerate(layer):
                         tag = f"l{li}_s{si}_{kind}"
-                        delta = _apply_sublayer(
+                        delta, state, aux_d = _apply_sublayer(
                             kind, period_params[tag], cfg, x, pos, mode,
                             period_cache.get(tag), lens,
                         )
                         x = x + delta.to(x.dtype)
-        return L.apply_norm(cfg.norm, self.params["final_norm"], x)
+                        if aux_d is not None:
+                            aux = aux + aux_d
+                        if state is not None and stage_cache is not None:
+                            for k, v in state.items():
+                                stage_cache[tag][k][r].copy_(v)
+        return L.apply_norm(cfg.norm, self.params["final_norm"], x), aux
+
+    # ----------------------------------------------------------------- full
+    @torch.no_grad()
+    def forward(self, inputs: torch.Tensor, pos_offset: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The cache-free full-sequence pass: ``inputs`` (B, S) ids or
+        (B, S, D) embeddings.  Returns (normed hidden (B, S, D), aux loss
+        ()), as the JAX package's ``forward`` does (without remat: no
+        backward pass runs here)."""
+        x = self._embed(inputs)
+        B, S = x.shape[0], x.shape[1]
+        pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+        if pos_offset is not None:
+            pos = pos + pos_offset.to(pos.device, torch.int32)[:, None]
+        return self._run_stages(x, pos, "train", None, None)
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch: int, max_seq: int) -> Cache:
-        """A dense cache: zeroed ``(N_periods, B, max_seq, KVH, Hd)`` K/V per
-        attention sublayer."""
+        """A dense cache: per sublayer with state, ``(N_periods, B, ...)``
+        tensors: K/V of ``max_seq`` positions, a ring of ``min(window,
+        max_seq)`` positions for ``attn_local``, or a recurrent state."""
         cfg = self.cfg
         cache: Cache = {"lens": torch.zeros((batch,), dtype=torch.int32, device=self.device)}
-        shape = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
         for i, stage in enumerate(cfg.stages):
             entries = {}
             for li, layer in enumerate(stage.period):
                 for si, kind in enumerate(layer):
-                    if kind == "attn":
-                        entries[f"l{li}_s{si}_{kind}"] = {
-                            "k": torch.zeros((stage.n_periods,) + shape, dtype=self.dtype,
-                                             device=self.device),
-                            "v": torch.zeros((stage.n_periods,) + shape, dtype=self.dtype,
-                                             device=self.device),
-                        }
-                    elif kind != "mlp":
-                        raise ValueError(kind)
+                    e = stacked_cache_entry(kind, cfg, stage.n_periods, batch, max_seq,
+                                            self.device)
+                    if e is not None:
+                        entries[f"l{li}_s{si}_{kind}"] = e
             cache[f"stage{i}"] = entries
         return cache
 
     # --------------------------------------------------------------- prefill
     @torch.no_grad()
     def prefill(self, inputs: torch.Tensor, cache: Cache) -> Tuple[torch.Tensor, Cache]:
-        """Run the prompt ``inputs`` (B, S) through the model, filling the
-        cache.  Returns (last-position logits (B, V) float32, cache)."""
+        """Run the prompt ``inputs`` (B, S) ids or (B, S, D) embeddings
+        through the model, filling the cache.  Returns (last-position logits
+        (B, V) float32, cache)."""
         x = self._embed(inputs)
         B, S = x.shape[0], x.shape[1]
         pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-        x = self._run_stages(x, pos, "prefill", cache, None)
+        x, _ = self._run_stages(x, pos, "prefill", cache, None)
         logits = self._logits(x[:, -1:])[:, 0]
         out = dict(cache)
         out["lens"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
@@ -310,11 +496,12 @@ class Model:
     # ---------------------------------------------------------------- decode
     @torch.no_grad()
     def decode_step(self, inputs: torch.Tensor, cache: Cache) -> Tuple[torch.Tensor, Cache]:
-        """One token per sequence: ``inputs`` (B,) ids.  Returns (logits
-        (B, V) float32, cache with lengths advanced)."""
+        """One token per sequence: ``inputs`` (B,) ids or (B, 1, D)
+        embeddings.  Returns (logits (B, V) float32, cache with lengths
+        advanced)."""
         lens = cache["lens"]
-        x = self._embed(inputs[:, None])
-        x = self._run_stages(x, lens[:, None], "decode", cache, lens)
+        x = self._embed(inputs[:, None] if inputs.dim() == 1 else inputs)
+        x, _ = self._run_stages(x, lens[:, None], "decode", cache, lens)
         logits = self._logits(x)[:, 0]
         out = dict(cache)
         out["lens"] = lens + 1

@@ -15,8 +15,15 @@ agent sandbox needs:
   replays the identical token stream, and the token streams equal the JAX
   package's on equal logits.
 
-It runs eagerly; there are no compiled-program caches.  Recurrent-state
-architectures wait for their layers to be ported.
+It runs eagerly; there are no compiled-program caches.
+
+Recurrent architectures (mamba/xlstm sublayers) carry their states in
+``session.extras["stage{i}/{tag}"]``, one ``(N_periods, 1, ...)`` tensor
+per state leaf on the engine's device: fork is aliasing, restore is
+rebinding — the degenerate-but-fastest DeltaCR case.  Every step
+concatenates the batch's states into fresh tensors, which the model
+updates in place, and rebinds each session's extras to its slice of them,
+so a state a fork shares is never written.
 """
 from __future__ import annotations
 
@@ -26,7 +33,7 @@ from typing import Any, Dict, List, Sequence
 import numpy as np
 import torch
 
-from ..models.model import Model
+from ..models.model import RECURRENT_KINDS, Model, stacked_cache_entry
 from .kvcache import PagePool, PagedSession
 
 __all__ = ["Engine", "SamplingParams"]
@@ -66,9 +73,10 @@ class Engine:
         with self.pool.lock:
             sess.ensure_writable(extra_tokens=S)
             sess.seq_len = S
-            cache = self._build_cache([sess])
+            cache = self._build_cache([sess], init_recurrent=True)
             tokens = torch.as_tensor([prompt], dtype=torch.int32, device=self.device)
-            logits, _ = self.model.prefill(tokens, cache)
+            logits, new_cache = self.model.prefill(tokens, cache)
+            self._absorb_cache([sess], new_cache)
         logits_np = logits[0].float().cpu().numpy()
         sess.extras["last_logits"] = logits_np
         sess.extras["prompt_len"] = np.asarray([S], np.int64)
@@ -102,7 +110,8 @@ class Engine:
             last = [s.tokens[-1] for s in sessions]
             cache = self._build_cache(sessions)
             tokens = torch.as_tensor(last, dtype=torch.int32, device=self.device)
-            logits, _ = self.model.decode_step(tokens, cache)
+            logits, new_cache = self.model.decode_step(tokens, cache)
+            self._absorb_cache(sessions, new_cache)
             for s in sessions:
                 s.seq_len += 1
         out = []
@@ -138,10 +147,15 @@ class Engine:
         sess.extras["rng_counter"] = np.asarray([counter + 1], np.int64)
         return tok
 
-    def _build_cache(self, sessions: Sequence[PagedSession]) -> Dict[str, Any]:
+    def _build_cache(self, sessions: Sequence[PagedSession], *,
+                     init_recurrent: bool = False) -> Dict[str, Any]:
         """The paged cache for a batch: the pool's stacked K/V tensors and
-        the sessions' page tables, broadcast over periods (a view)."""
+        the sessions' page tables, broadcast over periods (a view), and
+        each recurrent sublayer's states as fresh ``(N, B, ...)`` tensors:
+        initial states at prefill (``init_recurrent``), else the
+        concatenation of the sessions' extras."""
         cfg = self.cfg
+        B = len(sessions)
         cache: Dict[str, Any] = {
             "lens": torch.as_tensor(
                 [s.seq_len for s in sessions], dtype=torch.int32, device=self.device
@@ -161,7 +175,24 @@ class Engine:
                             "pv": self.pool.pools_v[f"stage{i}"][tag],
                             "table": tables.expand((stage.n_periods,) + tuple(tables.shape)),
                         }
-                    elif kind != "mlp":
-                        raise ValueError(kind)
+                    elif kind in RECURRENT_KINDS:
+                        if init_recurrent:
+                            entries[tag] = stacked_cache_entry(
+                                kind, cfg, stage.n_periods, B, 1, self.device)
+                        else:
+                            per = [s.extras[f"stage{i}/{tag}"] for s in sessions]
+                            entries[tag] = {
+                                leaf: torch.cat([p[leaf] for p in per], dim=1)
+                                for leaf in per[0]
+                            }
             cache[f"stage{i}"] = entries
         return cache
+
+    def _absorb_cache(self, sessions: Sequence[PagedSession], new_cache: Dict[str, Any]) -> None:
+        """Rebind each session's recurrent states to its slice of the step's
+        updated ``(N, B, ...)`` tensors (K/V were written into the pool in
+        place)."""
+        for key in self.pool.state_keys:
+            skey, tag = key.split("/")
+            for b, s in enumerate(sessions):
+                s.extras[key] = {leaf: t[:, b:b + 1] for leaf, t in new_cache[skey][tag].items()}

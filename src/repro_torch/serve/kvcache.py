@@ -43,6 +43,7 @@ from ..core.delta_pipeline import ChunkedView, DeltaGeneration
 from ..core.deltacr import resolve_device
 from ..core.deltafs import dtype_str
 from ..kernels import ops as kops
+from ..models.model import RECURRENT_KINDS
 
 __all__ = [
     "CowCorruptionError",
@@ -144,6 +145,15 @@ class PagePool:
                         self.attn_tags.append((f"stage{i}", tag))
             self.pools_k[f"stage{i}"] = sk
             self.pools_v[f"stage{i}"] = sv
+        # session extras keys ("stage{i}/{tag}") that hold a recurrent
+        # sublayer's states, which live on the pool's device
+        self.state_keys = frozenset(
+            f"stage{i}/l{li}_s{si}_{kind}"
+            for i, stage in enumerate(cfg.stages)
+            for li, layer in enumerate(stage.period)
+            for si, kind in enumerate(layer)
+            if kind in RECURRENT_KINDS
+        )
         self.refs = np.zeros((num_pages,), np.int64)
         self.refs[0] = 1                       # page 0 reserved (filler)
         self._free: List[int] = list(range(num_pages - 1, 0, -1))
@@ -335,7 +345,10 @@ class PagePool:
                 self.decref(np.asarray(taken, np.int64))
 
     def _corrupt_page_for_test(self, page: int) -> None:
-        """Injected-bitrot analogue for the copy path (chaos tests only)."""
+        """Injected-bitrot analogue for the copy path (chaos tests only); a
+        pool with no attention layer holds no page bytes to corrupt."""
+        if not self.attn_tags:
+            return
         skey, tag = self.attn_tags[0]
         self.pools_k[skey][tag][:, page] += 1
 
@@ -450,6 +463,14 @@ def _host_extra(val: Any) -> Any:
     """An extras leaf as the dump sees it: tensors as they are, anything
     else as a numpy array."""
     return val if isinstance(val, torch.Tensor) else np.asarray(val)
+
+
+def _device_extra(val: Any, device: torch.device) -> torch.Tensor:
+    """A restored recurrent-state leaf (a numpy array, or a CPU tensor for
+    bfloat16) uploaded to ``device`` with its bits and dtype; a failed
+    upload raises."""
+    t = val if isinstance(val, torch.Tensor) else tensor_from_numpy(val)
+    return t.to(device)
 
 
 class PagedSession:
@@ -600,6 +621,10 @@ class PagedSession:
 
     @staticmethod
     def restore_from_payload(pool: PagePool, payload: Dict[str, Any]) -> "PagedSession":
+        """A new session holding ``payload``'s pages (freshly allocated),
+        tokens and extras; extras come back as numpy arrays (bfloat16 as
+        CPU tensors), except recurrent states (``pool.state_keys``), which
+        are uploaded to the pool's device."""
         seq_len = int(payload["meta/seq_len"][0])
         tokens = [int(t) for t in payload["meta/tokens"]]
         sess = PagedSession(pool, seq_len=seq_len, tokens=tokens)
@@ -616,6 +641,8 @@ class PagedSession:
                 continue
             path = name[len("extra/"):]
             val = _host_extra(arr)
+            if path.split("::", 1)[0] in pool.state_keys:
+                val = _device_extra(val, pool.device)
             if "::" in path:                     # nested dict
                 head, *rest = path.split("::")
                 node = sess.extras.setdefault(head, {})

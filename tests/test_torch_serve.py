@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import arch_names
 from repro.configs import get_config as j_get_config
 from repro.models import Model as JModel
 from repro.serve import Engine as JEngine
@@ -135,9 +136,19 @@ def test_chunked_causal_attention_matches_reference(S, chunk):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
-def test_unported_sublayer_raises():
-    with pytest.raises(ValueError, match="attn_local"):
-        Model(get_config("gemma3-27b-tiny"), device="cpu").init(torch.Generator().manual_seed(0))
+@pytest.mark.parametrize("arch", arch_names())
+def test_every_tiny_config_builds_with_reference_param_count(arch):
+    """Every architecture builds on the port, with the JAX package's
+    param count and, leaf for leaf, its param shapes and dtypes."""
+    name = arch + "-tiny"
+    model = Model(get_config(name), device="cpu")
+    model.init(torch.Generator().manual_seed(0))
+    jmodel = JModel(j_get_config(name))
+    assert model.param_count() == jmodel.param_count()
+    want = jax.tree.map(lambda s: (tuple(s.shape), str(s.dtype)), jmodel.param_shapes())
+    got = jax.tree.map(lambda t: (tuple(t.shape), str(t.dtype).replace("torch.", "")),
+                       model.params)
+    assert got == want
 
 
 # ---------------------------------------------------------------------------
