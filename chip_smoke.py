@@ -91,10 +91,25 @@ Phases:
    ``mlstm``, ``slstm``, ``attn_local`` and M-RoPE attention (qwen2-vl).
    Phase 9 runs after the profiler of phases 6 and 4b has been used, so its
    host-bound step times are slower than a fresh process's;
+10. training — ``Trainer.run`` (the path of ``python -m
+   repro_torch.launch.train``) at the full width of ``olmo-1b`` (16 × (attn,
+   mlp), d_model 2048, vocab 50304, bf16 params, fp32 moments) on 8
+   sequences of 4096 tokens in 2 microbatches: ``loss_fn`` forward and
+   backward, AdamW, a coupled DeltaFS checkpoint after step 3, the
+   ``trainer.step`` seam raising before step 4, ``restore_latest`` and the
+   run resumed to step 5.  Every restored leaf bit-exact against a device
+   clone of the snapshot, the stream state equal, the re-run step 3's loss
+   equal to the pre-crash one, step 4 within 1e-3 of the pre-crash params'
+   loss on its batch; step time, tokens/s, MFU against the card's bf16 dense
+   peak, peak memory, snapshot, background write and restore times; no
+   kernel of the port launches (checkpoints go to the host DeltaFS);
+   (10b) one step of a fresh trainer under ``torch.profiler``: its device
+   busy time, idle share, matrix-product time and top kernels, then a
+   checkpoint whose background write is timed with the training idle;
 5. report — one JSON line per kernel, the ``{"kernels": [...]}`` line, the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
-Phases run in the order 1, 2, 3, 3b, 4, 6, 7, 8, 4b, 9, 5.
+Phases run in the order 1, 2, 3, 3b, 4, 6, 7, 8, 4b, 9, 10, 10b, 5.
 
 Any failure exits non-zero before the last line is printed.  The script
 imports nothing of JAX or of the JAX package.
@@ -2692,6 +2707,341 @@ def run_sublayer_checks(device) -> list:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: training at full olmo-1b width, with a crash and a restore
+# ---------------------------------------------------------------------------
+TRAIN_CONFIG = "olmo-1b"        # the JAX launcher's default training arch
+TRAIN_SEQ = 4096                # train_4k's sequence length
+TRAIN_BATCH = 8                 # train_4k's global batch 256, cut to 8
+TRAIN_STEPS = 5                 # the launcher's 100 steps, cut to 5
+TRAIN_CKPT_EVERY = 3
+TRAIN_KEEP_CKPTS = 2
+TRAIN_MICROBATCHES = 2
+TRAIN_FAIL_AT = 4               # the trainer.step seam raises before step 4
+TRAIN_PEAK_LR = 3e-4
+TRAIN_WARMUP = 2
+# Step 4 after the restore against the pre-crash params after step 3: equal
+# unless the re-run's backward pass summed a gradient in another order
+# (atomics), which moves a bf16 weight by at most an ulp where its AdamW
+# step rounds near a half.
+TRAIN_STEP4_RTOL = 1e-3
+# bf16 dense peak of the card, by the name torch.cuda.get_device_name gives
+# (NVIDIA's data sheet, SXM part, no sparsity, at a 700 W power limit)
+BF16_DENSE_PEAK = {"NVIDIA H100 80GB HBM3": 989e12}
+
+
+def _host_available_bytes():
+    """MemAvailable of /proc/meminfo, in bytes (None where there is none)."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        return None
+    return None
+
+
+def _bits(t):
+    """An integer view of ``t``'s bytes, for a bit-for-bit comparison."""
+    import torch
+
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.view(ints[t.element_size()]) if t.dtype.is_floating_point else t
+
+
+def run_train_path(device, *, config: str = TRAIN_CONFIG, seq_len: int = TRAIN_SEQ,
+                   global_batch: int = TRAIN_BATCH, steps: int = TRAIN_STEPS,
+                   ckpt_every: int = TRAIN_CKPT_EVERY, microbatches: int = TRAIN_MICROBATCHES,
+                   fail_at: int = TRAIN_FAIL_AT, seed: int = 0) -> dict:
+    """Phase 10: ``repro_torch.launch.train``'s path, ``Trainer.run``, on
+    ``device`` at ``config``'s full width: ``loss_fn`` forward and backward,
+    AdamW, a coupled DeltaFS checkpoint after step ``ckpt_every``, the
+    ``trainer.step`` seam raising before step ``fail_at``, ``restore_latest``
+    and the run resumed to ``steps``.
+
+    Gates (AssertionError): every restored params and optimizer leaf equals,
+    bit for bit, a device clone of the checkpointed snapshot kept here, and
+    the stream state equals the checkpoint's; the re-run step ``ckpt_every``
+    gives the pre-crash loss exactly (a forward pass over restored bytes and
+    restored data); step ``fail_at`` after the restore within
+    ``TRAIN_STEP4_RTOL`` of the loss of the pre-crash params after step
+    ``fail_at - 1`` on the same batch; every loss finite, the first within
+    [ln V - 1, ln V + 2]."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import faults
+    from repro_torch.models import Model
+    from repro_torch.train import DataConfig, OptimizerConfig, PackedStream, Trainer, TrainerConfig
+    from repro_torch.train.optim import tree_map, tree_paths
+
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    t_phase = time.perf_counter()
+    if cuda:
+        torch.cuda.synchronize(device)          # initializes the card in a fresh process
+        torch.cuda.reset_peak_memory_stats(device)
+    cfg = get_config(config)
+    model = Model(cfg, device=device)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len, global_batch=global_batch)
+    trainer = Trainer(
+        model,
+        OptimizerConfig(peak_lr=TRAIN_PEAK_LR, warmup_steps=TRAIN_WARMUP, total_steps=steps),
+        data_cfg,
+        TrainerConfig(steps=steps, ckpt_every=ckpt_every, keep_ckpts=TRAIN_KEEP_CKPTS,
+                      microbatches=microbatches, log_every=1),
+    )
+    host_before = _host_available_bytes()
+    params, opt, err = trainer.init_state(seed)
+    n_params = model.param_count()
+
+    # The phase's own witnesses: a device clone of the first checkpoint's
+    # snapshot and stream state, the synchronized time of each checkpoint
+    # call, and the params the last step returned.
+    kept, last, snapshot_ms = {}, {}, []
+    checkpoint, train_step = trainer.checkpoint, trainer.train_step
+
+    def keep_checkpoint(step, p, o):
+        sync()
+        t0 = time.perf_counter()
+        checkpoint(step, p, o)
+        sync()
+        snapshot_ms.append((time.perf_counter() - t0) * 1e3)
+        if not kept:
+            with torch.no_grad():
+                kept.update(step=step, params=tree_map(torch.clone, p),
+                            opt=tree_map(torch.clone, o), stream=trainer.stream.state())
+
+    def keep_step(p, o, e, batch):
+        out = train_step(p, o, e, batch)
+        last["params"] = out[0]
+        return out
+
+    trainer.checkpoint, trainer.train_step = keep_checkpoint, keep_step
+    try:
+        trainer.run(params, opt, err, fail_at=fail_at)
+    except faults.FaultError:
+        pass
+    else:
+        raise AssertionError(f"the trainer.step seam did not raise before step {fail_at}")
+    del params, opt, err
+    pre = {m["step"]: m for m in trainer.metrics_log}
+    if sorted(pre) != list(range(1, fail_at + 1)):
+        raise AssertionError(f"the crashed run logged steps {sorted(pre)}")
+
+    t0 = time.perf_counter()
+    trainer.wait_checkpoints()          # the step-3 write, still running at the crash
+    wait_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params, opt, err, step = trainer.restore_latest()
+    sync()
+    restore_s = time.perf_counter() - t0
+    if step != ckpt_every or kept.get("step") != ckpt_every:
+        raise AssertionError(f"restore_latest gave step {step}, the checkpoint was {kept.get('step')}")
+    compared = 0
+    for name, got_tree, want_tree in (("params", params, kept["params"]), ("opt", opt, kept["opt"])):
+        got, want = dict(tree_paths(got_tree)), dict(tree_paths(want_tree))
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"restored {name} leaves differ from the snapshot's")
+        for path, w in want.items():
+            g = got[path]
+            if (g.shape != w.shape or g.dtype != w.dtype or g.device != w.device
+                    or not torch.equal(_bits(g), _bits(w))):
+                raise AssertionError(f"restored {name}/{path} differs from the snapshot")
+            compared += 1
+    state = trainer.stream.state()
+    for k, v in kept["stream"].items():
+        if state[k].dtype != v.dtype or state[k].tobytes() != v.tobytes():
+            raise AssertionError(f"restored stream {k} differs from the step-{step} state")
+    kept_stream = kept.pop("stream")
+    kept.clear()
+
+    # the pre-crash params after step fail_at - 1, on step fail_at's batch
+    stream = PackedStream(data_cfg)
+    stream.restore(kept_stream)
+    for _ in range(fail_at - ckpt_every):
+        stream.next_batch()
+    batch = {k: torch.from_numpy(v).to(device) for k, v in stream.next_batch().items()}
+    with torch.no_grad():
+        lsum = torch.zeros((), dtype=torch.float32, device=device)
+        for i in range(microbatches):
+            mb = {k: v.reshape((microbatches, -1) + tuple(v.shape[1:]))[i] for k, v in batch.items()}
+            lsum = lsum + model.loss_fn(last["params"], mb)[0]
+        ref_loss = float(lsum / microbatches)
+    del batch, mb, lsum
+    last.clear()
+
+    trainer.metrics_log = []
+    params, opt, err, end = trainer.run(params, opt, err, start_step=step)
+    post = {m["step"]: m for m in trainer.metrics_log}
+    host_after = _host_available_bytes()
+    if end != steps or sorted(post) != list(range(step + 1, steps + 1)):
+        raise AssertionError(f"the resumed run logged steps {sorted(post)}, ended at {end}")
+    if post[step + 1]["loss"] != pre[step + 1]["loss"]:
+        raise AssertionError(f"step {step} re-run gave loss {post[step + 1]['loss']!r}, "
+                             f"before the crash {pre[step + 1]['loss']!r}")
+    loss4 = post[fail_at + 1]["loss"]
+    if not abs(loss4 - ref_loss) <= TRAIN_STEP4_RTOL * abs(ref_loss):
+        raise AssertionError(f"step {fail_at} after the restore gave {loss4!r}, the pre-crash "
+                             f"params {ref_loss!r}")
+    losses = [pre[k]["loss"] for k in sorted(pre)] + [post[k]["loss"] for k in sorted(post)]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"a loss is not finite: {losses}")
+    ln_v = math.log(cfg.vocab_size)
+    if not ln_v - 1 <= losses[0] <= ln_v + 2:
+        raise AssertionError(f"first loss {losses[0]} outside [ln V - 1, ln V + 2] = "
+                             f"[{ln_v - 1:.3f}, {ln_v + 2:.3f}]")
+
+    dts = [pre[k]["dt"] for k in sorted(pre)] + [post[k]["dt"] for k in sorted(post)]
+    step_s = statistics.median(dts[1:])
+    tokens = global_batch * seq_len
+    name = torch.cuda.get_device_name(device) if cuda else None
+    peak = BF16_DENSE_PEAK.get(name)
+    ckpt = trainer.ckpt_log[0]
+    shape = cfg.shape("train_4k") if any(s.name == "train_4k" for s in cfg.shapes) else None
+    out = {
+        "config": cfg.name,
+        "params": n_params,
+        "params_leaves": sum(1 for _ in tree_paths(params)),
+        "seq_len": seq_len,
+        "global_batch": global_batch,
+        "microbatches": microbatches,
+        "steps": steps,
+        "reduced": ({"global_batch": [shape.global_batch, global_batch],
+                     "steps": [100, steps], "seq_len": [shape.seq_len, seq_len]}
+                    if shape is not None else None),
+        "losses_before_crash": [pre[k]["loss"] for k in sorted(pre)],
+        "losses_after_restore": [post[k]["loss"] for k in sorted(post)],
+        "step_after_restore_ref_loss": ref_loss,
+        "step_after_restore_abs_diff": abs(loss4 - ref_loss),
+        "step_ms": [dt * 1e3 for dt in dts],
+        "step_ms_median": step_s * 1e3,
+        "tokens_per_s": tokens / step_s,
+        "model_flops_per_step": 6 * n_params * tokens,
+        "mfu": (6 * n_params * tokens / step_s / peak) if peak else None,
+        "bf16_dense_peak_flops": peak,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
+        "alloc_retries": (torch.cuda.memory_stats(device).get("num_alloc_retries")
+                          if cuda else None),
+        "snapshot_ms_synced": snapshot_ms[0],
+        "snapshot_ms_host": ckpt["snapshot_ms"],
+        "ckpt_write_s": ckpt["write_s"],
+        "ckpt_write_bytes": ckpt["bytes"],
+        "ckpt_wait_after_crash_s": wait_s,
+        "restore_s": restore_s,
+        "restored_leaves_bit_exact": compared,
+        "host_available_before": host_before,
+        "host_available_after": host_after,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    del params, opt, err, trainer, model
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _write_stages(leaf, chunk_bytes: int) -> dict:
+    """The host stages of one leaf's checkpoint write, each timed alone in
+    MB/s: the device->host copy (``.to("cpu")``, as the writer thread does),
+    the blake2b digest of every chunk, and the copy of every chunk into the
+    bytes object the chunk store keeps."""
+    from repro_torch.core.chunk_store import chunk_digest, iter_chunk_views
+    from repro_torch.core.deltafs import host_bytes
+
+    t = time.perf_counter()
+    host = leaf.to("cpu")
+    d2h = time.perf_counter() - t
+    raw = host_bytes(host)
+    t = time.perf_counter()
+    for piece, pad in iter_chunk_views(raw, chunk_bytes):
+        chunk_digest(piece, pad)
+    digest = time.perf_counter() - t
+    t = time.perf_counter()
+    kept = [bytes(piece) for piece, _ in iter_chunk_views(raw, chunk_bytes)]
+    copy = time.perf_counter() - t
+    mb = raw.nbytes / 1e6
+    del kept
+    return {"bytes": raw.nbytes, "d2h_mb_s": mb / d2h, "digest_mb_s": mb / digest,
+            "chunk_copy_mb_s": mb / copy}
+
+
+def profile_train_step(device, *, config: str = TRAIN_CONFIG, seq_len: int = TRAIN_SEQ,
+                       global_batch: int = TRAIN_BATCH, microbatches: int = TRAIN_MICROBATCHES,
+                       top: int = 10, seed: int = 0) -> dict:
+    """Phase 10b: where phase 10's step goes.  A fresh trainer at phase 10's
+    shape takes one step to warm up, then one step under ``torch.profiler``
+    (device activity only): host wall time, the device's busy time (sum of
+    its kernels, copies and memsets on the one stream), the idle share, the
+    time of the matrix products (kernels named like cuBLAS's) and the
+    kernels that take most of it.  Then one coupled checkpoint of the
+    state, its background write timed alone, with the training thread
+    idle (in phase 10 it overlaps a step), and the host stages of that
+    write for the largest moment leaf (``_write_stages``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train import DataConfig, OptimizerConfig, Trainer, TrainerConfig
+    from repro_torch.train.optim import tree_leaves
+
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    cfg = get_config(config)
+    trainer = Trainer(
+        Model(cfg, device=device),
+        OptimizerConfig(peak_lr=TRAIN_PEAK_LR, warmup_steps=TRAIN_WARMUP, total_steps=2),
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len, global_batch=global_batch),
+        TrainerConfig(steps=2, ckpt_every=0, microbatches=microbatches, log_every=1),
+    )
+    params, opt, err = trainer.init_state(seed)
+    params, opt, err, _ = trainer.run(params, opt, err, steps=1)
+    out = {"config": cfg.name, "tokens": global_batch * seq_len}
+    if cuda:
+        torch.cuda.synchronize(device)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            params, opt, err, _ = trainer.run(params, opt, err, start_step=1, steps=2)
+            torch.cuda.synchronize(device)
+            wall = (time.perf_counter() - t) * 1e3
+        rows = _device_rows(prof)
+        busy = sum(r[1] for r in rows)
+        gemm = sum(r[1] for r in rows
+                   if any(k in r[0].lower() for k in ("gemm", "nvjet", "cutlass", "xmma")))
+        out.update({
+            "step_wall_ms": wall,
+            "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / wall,
+            "device_events": sum(r[2] for r in rows),
+            "matmul_ms": gemm,
+            "top": [{"name": n[:120], "ms": ms, "count": c} for n, ms, c in rows[:top]],
+        })
+    if cuda:
+        torch.cuda.synchronize(device)
+    t = time.perf_counter()
+    trainer.checkpoint(2, params, opt)
+    trainer.wait_checkpoints()
+    out["write_alone_s"] = time.perf_counter() - t
+    out["write_alone_bytes"] = trainer.ckpt_log[-1]["bytes"]
+    out["write_stages"] = _write_stages(max(tree_leaves(opt["m"]), key=lambda l: l.numel()),
+                                        trainer.fs.store.chunk_bytes)
+    del params, opt, err, trainer
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 def checkpoint_profile(device) -> dict:
     """Phase 4b: the C/R cell again for a few turns, one checkpoint of it
     under ``torch.profiler``, for its device time by kernel.  It runs after
@@ -2903,6 +3253,44 @@ def main() -> int:
     say(f"[9d sublayers] every sublayer within {SUBLAYER_TOL} of the CPU "
         f"({time.perf_counter() - t:.1f} s; card: {card})")
     say(f"[9 families] phase 9 ran {time.perf_counter() - t9:.1f} s (card: {card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 10: training at full olmo-1b width (launch counts over exactly this run)
+    say(f"[10 train] device memory allocated before phase 10: "
+        f"{torch.cuda.memory_allocated()} B")
+    reset_launch_counts()
+    try:
+        train = run_train_path(device)
+    except AssertionError as exc:
+        fail(f"phase 10: {exc}")
+    train_launches = launch_counts()
+    say(f"[10 train] launches {json.dumps(train_launches)}: the training path checkpoints "
+        f"into the host DeltaFS and runs none of the port's kernels")
+    if any(train_launches.values()):
+        fail(f"phase 10 launched a kernel: {json.dumps(train_launches)}")
+    say(f"[10 train] {train['config']}: {train['params']} parameters; cut from train_4k: "
+        f"global batch {train['reduced']['global_batch'][0]} -> {train['global_batch']}, "
+        f"steps {train['reduced']['steps'][0]} -> {train['steps']} "
+        f"(sequence {train['seq_len']}, {train['microbatches']} microbatches)")
+    say(f"[10 train] {json.dumps(train)} (card: {card})")
+    say(f"[10 train] step {train['step_ms_median']:.1f} ms (median after the first), "
+        f"{train['tokens_per_s']:.0f} tokens/s, MFU {train['mfu']}, peak "
+        f"{train['peak_memory_bytes']} B; snapshot {train['snapshot_ms_synced']:.1f} ms, "
+        f"background write {train['ckpt_write_s']:.1f} s for {train['ckpt_write_bytes']} B, "
+        f"restore {train['restore_s']:.1f} s; phase 10 ran {train['phase_s']:.1f} s "
+        f"(card: {card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 10b: one profiled training step, and a checkpoint write alone
+    t = time.perf_counter()
+    reset_launch_counts()
+    train_profile = profile_train_step(device)
+    if any(launch_counts().values()):
+        fail(f"phase 10b launched a kernel: {json.dumps(launch_counts())}")
+    say(f"[10b train profile] {json.dumps(train_profile)} "
+        f"({time.perf_counter() - t:.1f} s; card: {card})")
 
     # -- phase 5: report
     kernels = []

@@ -501,13 +501,18 @@ class NamespaceView:
                 raise KeyError(key)
             return meta
 
-    def write(self, key: str, value: np.ndarray) -> int:
-        """Copy-up ``value`` into the upper layer.
+    def write(self, key: str, value: Any) -> int:
+        """Copy-up ``value`` (a numpy array, or a tensor of any dtype,
+        bfloat16 included, read to the host) into the upper layer.
 
         Returns the number of *physical* chunks written (the dirtied-block
         count); unchanged chunks are shared with the previous generation.
         """
-        value = np.ascontiguousarray(value)
+        if isinstance(value, torch.Tensor):
+            # 0-d as (1,), the shape np.ascontiguousarray gives a scalar
+            value = value.detach().reshape(value.shape or (1,)).contiguous()
+        else:
+            value = np.ascontiguousarray(value)
         with self._lock:
             self._check_open()
             prev = self._resolve(key)

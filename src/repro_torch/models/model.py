@@ -14,8 +14,8 @@ params).  A layer is a tuple of sublayers, each pre-normed + residual:
 
 Three modes share one code path:
 
-    train    — ``forward``: the whole sequence, no cache (no backward pass
-               in this package yet)
+    train    — ``forward`` / ``loss_fn``: the whole sequence, no cache,
+               each period rematerialized in the backward pass
     prefill  — as train, but K/V and recurrent states written to the cache
     decode   — one token per sequence, reading and writing the cache
 
@@ -38,6 +38,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.deltacr import resolve_device
@@ -96,11 +97,15 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _index(tree: Any, r: int) -> Any:
-    """Period ``r`` of a tree of tensors stacked over periods."""
+def _unbind(tree: Any, n: int) -> list:
+    """The ``n`` periods of a tree of tensors stacked over periods: one
+    ``unbind(0)`` per leaf.  Under autograd its backward stacks the
+    periods' gradients once, where indexing each period (``t[r]``) would
+    materialize a zero tensor the size of the whole stack per period."""
     if isinstance(tree, dict):
-        return {k: _index(v, r) for k, v in tree.items()}
-    return tree[r]
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: p[r] for k, p in parts.items()} for r in range(n)]
+    return tree.unbind(0)
 
 
 def _stack_into(dst: Any, src: Any, r: int) -> None:
@@ -351,6 +356,37 @@ def _apply_sublayer(
     raise ValueError(kind)
 
 
+def _apply_period(cfg: ModelConfig, period, period_params: Params, x: torch.Tensor,
+                  pos: torch.Tensor, mode: str, period_cache: Dict[str, Any],
+                  lens: Optional[torch.Tensor]):
+    """One period's sublayers over ``x``.  Returns (x, {tag: new recurrent
+    state} (empty in train mode), summed aux loss or None)."""
+    aux = None
+    states: Dict[str, Any] = {}
+    for li, layer in enumerate(period):
+        for si, kind in enumerate(layer):
+            tag = f"l{li}_s{si}_{kind}"
+            delta, state, aux_d = _apply_sublayer(
+                kind, period_params[tag], cfg, x, pos, mode, period_cache.get(tag), lens
+            )
+            x = x + delta.to(x.dtype)
+            if aux_d is not None:
+                aux = aux_d if aux is None else aux + aux_d
+            if state is not None and mode != "train":
+                states[tag] = state
+    return x, states, aux
+
+
+def _chunk_loss(hc: torch.Tensor, yc: torch.Tensor, head: torch.Tensor):
+    """Summed next-token NLL and target count of one loss chunk: hidden
+    (B, c, D), labels (B, c) (-1: no target), float32 head (V, D)."""
+    logits = hc.float() @ head.T                                   # (B,c,V)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, yc.clamp_min(0).long()[..., None])[..., 0]
+    valid = (yc >= 0).float()
+    return ((lse - gold) * valid).sum(), valid.sum()
+
+
 # --------------------------------------------------------------------------
 # Model
 # --------------------------------------------------------------------------
@@ -371,11 +407,25 @@ class Model:
 
     # ------------------------------------------------------------- init
     def init(self, generator: torch.Generator) -> Params:
+        """``draw(generator)``, bound as the model's weights."""
+        self.params = self.draw(generator)
+        return self.params
+
+    def draw(self, generator: torch.Generator) -> Params:
         """Random weights from the distributions of the JAX package's
         ``Model.init``, drawn from ``generator`` on the model's device (the
-        numbers differ from JAX's).  Stacked leaves are filled one period at
-        a time, so the peak is the weights plus one period's draw."""
-        cfg, dev = self.cfg, self.device
+        numbers differ from JAX's); the model's own weights stay as they
+        were.  Stacked leaves are filled one period at a time, so the peak
+        is the weights plus one period's draw."""
+        return self._draw(generator, self.device)
+
+    def param_shapes(self) -> Params:
+        """The params tree as ``meta`` tensors: every leaf's shape and
+        dtype, with no memory allocated and nothing drawn."""
+        return self._draw(torch.Generator(), torch.device("meta"))
+
+    def _draw(self, generator: torch.Generator, dev: torch.device) -> Params:
+        cfg = self.cfg
         dtype = _dtype(cfg.param_dtype)
         d = cfg.d_model
         params: Params = {
@@ -399,66 +449,121 @@ class Model:
                 _stack_into(stacked, period, r)
                 del period
             params[f"stage{i}"] = stacked
-        self.params = params
         return params
 
     # ------------------------------------------------------------ embedding
-    def _embed(self, inputs: torch.Tensor) -> torch.Tensor:
+    def _embed(self, params: Params, inputs: torch.Tensor) -> torch.Tensor:
         """Token ids (B, S), or precomputed embeddings (B, S, D) for an
         ``input_mode="embeddings"`` config."""
         if self.cfg.input_mode == "embeddings" and inputs.dim() == 3:
             x = inputs.to(self.dtype)
         else:
-            x = self.params["embed"][inputs.long()].to(self.dtype)
+            x = params["embed"][inputs.long()].to(self.dtype)
         if self.cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=self.dtype, device=x.device)
         return x
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        head = self.params["embed"] if self.cfg.tie_embeddings else self.params["lm_head"]
-        return x.float() @ head.float().T
+    def _head(self, params: Params) -> torch.Tensor:
+        return params["embed"] if self.cfg.tie_embeddings else params["lm_head"]
 
-    def _run_stages(self, x, pos, mode, cache, lens):
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        return x.float() @ self._head(self.params).float().T
+
+    def _run_stages(self, params, x, pos, mode, cache, lens, remat: bool = False):
         """Every stage's periods over ``x``; a recurrent sublayer's new state
-        goes into its period's slot of the cache's stacked entry.  Returns
-        (normed hidden, summed aux loss)."""
+        goes into its period's slot of the cache's stacked entry.  With
+        ``remat`` each period runs under ``torch.utils.checkpoint``: the
+        backward pass recomputes its activations from its input (the JAX
+        package's ``jax.checkpoint`` on the scan body).  Returns (normed
+        hidden, summed aux loss)."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, stage in enumerate(cfg.stages):
-            stage_params = self.params[f"stage{i}"]
+            periods = _unbind(params[f"stage{i}"], stage.n_periods)
             stage_cache = cache[f"stage{i}"] if cache is not None else None
-            for r in range(stage.n_periods):
-                period_params = _index(stage_params, r)
-                period_cache = _index(stage_cache, r) if stage_cache is not None else {}
-                for li, layer in enumerate(stage.period):
-                    for si, kind in enumerate(layer):
-                        tag = f"l{li}_s{si}_{kind}"
-                        delta, state, aux_d = _apply_sublayer(
-                            kind, period_params[tag], cfg, x, pos, mode,
-                            period_cache.get(tag), lens,
-                        )
-                        x = x + delta.to(x.dtype)
-                        if aux_d is not None:
-                            aux = aux + aux_d
-                        if state is not None and stage_cache is not None:
-                            for k, v in state.items():
-                                stage_cache[tag][k][r].copy_(v)
-        return L.apply_norm(cfg.norm, self.params["final_norm"], x), aux
+            caches = (_unbind(stage_cache, stage.n_periods) if stage_cache is not None
+                      else [{}] * stage.n_periods)
+            for r, (period_params, period_cache) in enumerate(zip(periods, caches)):
+                if remat:
+                    x, states, aux_d = checkpoint(
+                        _apply_period, cfg, stage.period, period_params, x, pos, mode,
+                        period_cache, lens, use_reentrant=False, preserve_rng_state=False,
+                    )
+                else:
+                    x, states, aux_d = _apply_period(
+                        cfg, stage.period, period_params, x, pos, mode, period_cache, lens
+                    )
+                if aux_d is not None:
+                    aux = aux + aux_d
+                if stage_cache is not None:
+                    for tag, state in states.items():
+                        for k, v in state.items():
+                            stage_cache[tag][k][r].copy_(v)
+        return L.apply_norm(cfg.norm, params["final_norm"], x), aux
 
     # ----------------------------------------------------------------- full
-    @torch.no_grad()
-    def forward(self, inputs: torch.Tensor, pos_offset: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The cache-free full-sequence pass: ``inputs`` (B, S) ids or
-        (B, S, D) embeddings.  Returns (normed hidden (B, S, D), aux loss
-        ()), as the JAX package's ``forward`` does (without remat: no
-        backward pass runs here)."""
-        x = self._embed(inputs)
+    def forward(self, inputs: torch.Tensor, *, pos_offset: Optional[torch.Tensor] = None,
+                remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The cache-free full-sequence pass over the model's weights:
+        ``inputs`` (B, S) ids or (B, S, D) embeddings.  Returns (normed
+        hidden (B, S, D), aux loss ()), as the JAX package's ``forward``
+        does.  It follows the caller's grad mode; ``remat`` matters only
+        where a backward pass will run."""
+        return self._forward(self.params, inputs, pos_offset, remat)
+
+    def _forward(self, params, inputs, pos_offset, remat):
+        x = self._embed(params, inputs)
         B, S = x.shape[0], x.shape[1]
         pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
         if pos_offset is not None:
             pos = pos + pos_offset.to(pos.device, torch.int32)[:, None]
-        return self._run_stages(x, pos, "train", None, None)
+        remat = remat and torch.is_grad_enabled()
+        return self._run_stages(params, x, pos, "train", None, None, remat=remat)
+
+    def loss_fn(
+        self,
+        params: Params,
+        batch: Dict[str, torch.Tensor],
+        *,
+        loss_chunk: int = 1024,
+        aux_weight: float = 0.01,
+        remat: bool = True,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token cross-entropy over ``params`` (the JAX package's
+        ``loss_fn``, ``model.py:483``): ``batch`` holds ``tokens`` (or
+        ``embeds``) and ``labels`` (B, S), a label of -1 being no target.
+        The sequence is cut into chunks of ``loss_chunk`` positions (the
+        last padded with -1 labels), each chunk's float32 logits reduced by
+        ``logsumexp`` and, with ``remat``, recomputed in the backward pass
+        rather than kept.  Returns (CE + ``aux_weight`` × MoE aux loss,
+        {"ce", "aux", "tokens"}).  The gold logit is a gather where the
+        reference takes a one-hot dot: equal bit for bit, as the dot only
+        adds exact zeros."""
+        inputs = batch["tokens"] if "tokens" in batch else batch["embeds"]
+        labels = batch["labels"]
+        hidden, aux = self._forward(params, inputs, None, remat)
+        S = labels.shape[1]
+        head = self._head(params).float()
+        n_chunks = -(-S // loss_chunk)
+        pad = n_chunks * loss_chunk - S
+        if pad:
+            hidden = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+            labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
+        remat = remat and torch.is_grad_enabled()
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for c in range(n_chunks):
+            sl = slice(c * loss_chunk, (c + 1) * loss_chunk)
+            if remat:
+                nll, valid = checkpoint(_chunk_loss, hidden[:, sl], labels[:, sl], head,
+                                        use_reentrant=False, preserve_rng_state=False)
+            else:
+                nll, valid = _chunk_loss(hidden[:, sl], labels[:, sl], head)
+            total = total + nll
+            count = count + valid
+        ce = total / torch.clamp(count, min=1.0)
+        loss = ce + aux_weight * aux
+        return loss, {"ce": ce, "aux": aux, "tokens": count}
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch: int, max_seq: int) -> Cache:
@@ -484,10 +589,10 @@ class Model:
         """Run the prompt ``inputs`` (B, S) ids or (B, S, D) embeddings
         through the model, filling the cache.  Returns (last-position logits
         (B, V) float32, cache)."""
-        x = self._embed(inputs)
+        x = self._embed(self.params, inputs)
         B, S = x.shape[0], x.shape[1]
         pos = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-        x, _ = self._run_stages(x, pos, "prefill", cache, None)
+        x, _ = self._run_stages(self.params, x, pos, "prefill", cache, None)
         logits = self._logits(x[:, -1:])[:, 0]
         out = dict(cache)
         out["lens"] = torch.full((B,), S, dtype=torch.int32, device=x.device)
@@ -500,8 +605,8 @@ class Model:
         embeddings.  Returns (logits (B, V) float32, cache with lengths
         advanced)."""
         lens = cache["lens"]
-        x = self._embed(inputs[:, None] if inputs.dim() == 1 else inputs)
-        x, _ = self._run_stages(x, lens[:, None], "decode", cache, lens)
+        x = self._embed(self.params, inputs[:, None] if inputs.dim() == 1 else inputs)
+        x, _ = self._run_stages(self.params, x, lens[:, None], "decode", cache, lens)
         logits = self._logits(x)[:, 0]
         out = dict(cache)
         out["lens"] = lens + 1
@@ -509,9 +614,11 @@ class Model:
 
     # -------------------------------------------------------------- helpers
     def param_count(self) -> int:
+        """Parameters of the config (of ``param_shapes()`` when the model
+        has no weights bound)."""
         def count(t: Any) -> int:
             if isinstance(t, dict):
                 return sum(count(v) for v in t.values())
             return t.numel()
 
-        return count(self.params)
+        return count(self.params if self.params is not None else self.param_shapes())

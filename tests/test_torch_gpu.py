@@ -537,3 +537,78 @@ def test_cuda_anchor_upload_failure_raises(cuda, tmp_path, monkeypatch):
     monkeypatch.setattr(delta_pipeline, "_upload_grid", fail)
     with pytest.raises(torch.cuda.OutOfMemoryError):
         recover(root, device="cuda")
+
+
+def _tiny_trainer(device, steps=1, ckpt_every=0):
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train import DataConfig, OptimizerConfig, Trainer, TrainerConfig
+
+    cfg = get_config("olmo-1b-tiny")
+    return Trainer(
+        Model(cfg, device=device),
+        OptimizerConfig(peak_lr=1e-3, warmup_steps=0, total_steps=10),
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4),
+        TrainerConfig(steps=steps, ckpt_every=ckpt_every, log_every=1, microbatches=2),
+    )
+
+
+@pytest.mark.gpu
+def test_cuda_train_step_matches_cpu(cuda):
+    """One float32 olmo-1b-tiny train step (2 microbatches, AdamW) on the
+    card with TF32 off, against the same step on the CPU from the same
+    params: the loss within 1e-5 relative, every param within 1e-5 of
+    its leaf's largest magnitude (float32 sums in other orders; AdamW's
+    first step is about lr × sign(g), so a gradient near 0 can move its
+    param by up to lr = 1e-3 × its relative error)."""
+    from repro_torch.train.optim import adamw_init, tree_map, tree_paths
+
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        cpu_tr = _tiny_trainer("cpu")
+        params, _, _ = cpu_tr.init_state(5)
+        gpu_tr = _tiny_trainer(cuda)
+        gparams = tree_map(lambda t: t.to(cuda), params)
+        p_cpu, *_ = cpu_tr.run(params, adamw_init(params, cpu_tr.opt_cfg), torch.zeros(()))
+        p_gpu, *_ = gpu_tr.run(gparams, adamw_init(gparams, gpu_tr.opt_cfg),
+                               torch.zeros((), device=cuda))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    want, got = cpu_tr.metrics_log[0]["loss"], gpu_tr.metrics_log[0]["loss"]
+    assert abs(got - want) <= 1e-5 * abs(want)
+    for (path, a), (_, b) in zip(tree_paths(p_cpu), tree_paths(p_gpu)):
+        assert b.device.type == "cuda"
+        err = float((b.cpu() - a).abs().max())
+        assert err <= 1e-5 * max(float(a.abs().max()), 1.0), (path, err)
+
+
+@pytest.mark.gpu
+def test_cuda_checkpoint_restore_is_bit_exact(cuda):
+    """A coupled checkpoint of CUDA params and moments (device clone, side
+    stream copy to the host DeltaFS) restores onto the card bit for bit."""
+    from repro_torch.train.optim import tree_map, tree_paths
+
+    tr = _tiny_trainer(cuda, steps=2, ckpt_every=2)
+    snaps = {}
+    checkpoint = tr.checkpoint
+
+    def keep(step, p, o):
+        snaps.update(params=tree_map(torch.clone, p), opt=tree_map(torch.clone, o))
+        checkpoint(step, p, o)
+
+    tr.checkpoint = keep
+    p, o, e = tr.init_state(0)
+    tr.run(p, o, e)
+    p2, o2, _, step = tr.restore_latest()
+    assert step == 2
+    for got_tree, want_tree in ((p2, snaps["params"]), (o2, snaps["opt"])):
+        got, want = dict(tree_paths(got_tree)), dict(tree_paths(want_tree))
+        assert sorted(got) == sorted(want)
+        for path, w in want.items():
+            g = got[path]
+            assert g.device.type == "cuda" and g.dtype == w.dtype and g.shape == w.shape
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32)), path

@@ -1,8 +1,8 @@
 """The port's models against the JAX package's, for every architecture.
 
 The JAX package's ``tests/test_models.py`` on the port (every ``-tiny``
-config; the train-step half of its smoke test waits for the port's
-training slice), then differentials that give both packages the same
+config; the train-step half of its smoke test, as a differential, is in
+``test_torch_train_step*.py``), then differentials that give both packages the same
 numpy inputs from a seed: the whole model (``forward``, and ``prefill`` +
 ``decode_step`` on a dense cache with every cache leaf, on the JAX params
 carried over by ``core.convert.params_from_numpy``).  The sublayer
