@@ -106,16 +106,37 @@ Phases:
    (10b) one step of a fresh trainer under ``torch.profiler``: its device
    busy time, idle share, matrix-product time and top kernels, then a
    checkpoint whose background write is timed with the training idle;
+11. sharded dumps — over a logical mesh of eight ("data", "model") ranks
+   on the one card: ``delta_fused``, ``delta_diff`` and ``delta_apply``
+   bit-exact at its part grids; (11a) phase 4's C/R cell as a
+   ``ShardedTensorState`` on a (4, 2) mesh (each KV tensor's sequence over
+   "data" and heads over "model", the heap over "model") under
+   ``DeltaCR(mode="delta")``: 8 turns with a checkpoint after each, a fast
+   rollback, slow restores onto (4, 2) and onto (2, 4), one more turn and
+   checkpoint on the state restored onto (4, 2); every restore against
+   device clones, every dump gather-free with each rank's row bytes equal to
+   its parts' dirty tiles and the ranks' bytes equal to the pipeline's
+   device→host bytes, the first two turns' images equal to the (1, 1)
+   layout's, the last image's digests equal to blake2b over
+   ``array_to_grid`` rows, one ``delta_apply`` per part with dirty tiles on
+   each slow restore and one delta-kernel launch per part on the dump after
+   it; (11b) on phase 6's model, a 1024-page pool laid over the (4, 2)
+   mesh (KV heads over "model"): phase 6's prompt decoded to a
+   power-of-two page count, a checkpoint, 8 steps, a delta checkpoint
+   (tiled KV entries, no gather), four fast forks at B = 4 (no page
+   copied), and a slow restore (one ``delta_apply`` per part with dirty
+   tiles) that must decode exactly what a fast fork decodes;
 5. report — one JSON line per kernel, the ``{"kernels": [...]}`` line, the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
-Phases run in the order 1, 2, 3, 3b, 4, 6, 7, 8, 4b, 9, 10, 10b, 5.
+Phases run in the order 1, 2, 3, 3b, 4, 6, 7, 8, 11, 4b, 9, 10, 10b, 5.
 
 Any failure exits non-zero before the last line is printed.  The script
 imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
@@ -2294,6 +2315,682 @@ def run_warm_pool_path(
 
 
 # ---------------------------------------------------------------------------
+# phase 11: shard-native dumps over a logical mesh on the card
+# ---------------------------------------------------------------------------
+SHARD_MESH = (4, 2)             # ("data", "model") ranks, all on the one card
+SHARD_MESH_OTHER = (2, 4)       # 11a's second restore layout
+SHARD_CHECK_TURNS = 2           # 11a: turns whose images are held against the (1, 1) layout
+SHARD_SERVE_STEPS = 8           # 11b: decode steps between the two checkpoints
+SHARD_FORK_STEPS = 4            # 11b: batched steps of the four forks
+
+
+def _shard_specs(mesh) -> dict:
+    """11a's layout: each KV tensor's sequence over "data" and heads over
+    "model" (``cache_specs(long_context=True)`` and the pool's TP split);
+    the heap over "model"."""
+    from repro_torch.dist.placement import NamedSharding, PartitionSpec as P
+
+    return {"kv": NamedSharding(mesh, P("data", "model", None)),
+            "heap": NamedSharding(mesh, P("model"))}
+
+
+def _shard_cell_state(cell, device, seed: int, mesh_shape):
+    """Phase 4's C/R cell as a ``ShardedTensorState`` on a logical mesh of
+    ``mesh_shape``; returns the state and each key's sharding."""
+    import torch
+
+    from repro_torch.dist.placement import device_put
+    from repro_torch.dist.shard_dump import ShardedTensorState
+    from repro_torch.launch.mesh import make_logical_mesh
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    specs = _shard_specs(make_logical_mesh(mesh_shape, device=device))
+    arrays, shardings = {}, {}
+    for layer in range(cell.layers):
+        for kind in ("k", "v"):
+            kv = torch.zeros((cell.session_tokens, cell.kv_heads, cell.head_dim),
+                             dtype=torch.bfloat16, device=device)
+            kv[: cell.prefix_tokens] = torch.randn(
+                (cell.prefix_tokens, cell.kv_heads, cell.head_dim), generator=gen, device=device
+            ).to(torch.bfloat16)
+            key = f"layer{layer}/{kind}"
+            arrays[key], shardings[key] = device_put(kv, specs["kv"]), specs["kv"]
+            del kv
+    heap = torch.randn(cell.heap_bytes // 4, generator=gen, device=device)
+    arrays["heap"], shardings["heap"] = device_put(heap, specs["heap"]), specs["heap"]
+    return ShardedTensorState(arrays), shardings
+
+
+def _shard_turn(cell, state, index: int, device, seed: int) -> None:
+    """Phase 4's agent turn ``index`` through ``set``: its tokens into every
+    KV tensor and 1% of the heap's rows, drawn from the turn's own
+    generator so another layout can replay it."""
+    import torch
+
+    gen, _ = _turn_rngs(device, seed, index)
+    pos = cell.prefix_tokens + index * cell.tokens_per_turn
+    n = cell.tokens_per_turn
+    for layer in range(cell.layers):
+        for kind in ("k", "v"):
+            key = f"layer{layer}/{kind}"
+            new_kv = torch.randn((n, cell.kv_heads, cell.head_dim), generator=gen,
+                                 device=device).to(torch.bfloat16)
+            state.set(key, state.get(key).with_box((slice(pos, pos + n),), new_kv))
+    touched = torch.randperm(cell.heap_rows, generator=gen, device=device)[: cell.heap_touch]
+    floats_per_row = cell.chunk_bytes // 4
+    offs = touched * floats_per_row + torch.randint(
+        0, floats_per_row - 16, (cell.heap_touch,), generator=gen, device=device
+    )
+    cols = (offs[:, None] + torch.arange(16, device=device)[None, :]).reshape(-1)
+    vals = torch.randn((cell.heap_touch * 16,), generator=gen, device=device)
+    state.set("heap", state.get("heap").with_flat(cols, vals))
+
+
+def _image_chunk_digests(image) -> dict:
+    return {k: (tuple(m.tile_grid), m.digests) for k, m in sorted(image.entries.items())}
+
+
+def _part_plan(cr, image, parent, state) -> dict:
+    """What the per-part dump of ``image`` must have moved, from its entries
+    against ``parent``'s: per rank, the row bytes (a part's dirty tiles, or
+    all of its tiles where they overflow its capacity), and the parts by
+    route: kernel-diffed with a dirty tile, overflowed, fused-sized."""
+    import numpy as np
+
+    from repro_torch.dist import shard_dump as sd
+
+    rows = {}
+    routes = {"dirty_parts": 0, "overflow_parts": 0, "fused_parts": 0, "unfused_parts": 0}
+    kv_ranks, heap_ranks = set(), set()
+    pipe = cr.pipeline
+    for key, meta in image.entries.items():
+        if not meta.tile_grid:
+            continue
+        plan = sd.TilePlan.from_meta(meta)
+        old = parent.entries[key].chunk_ids
+        dirty = np.asarray([a != b for a, b in zip(meta.chunk_ids, old)])
+        for part in sd.sharded_view(state.get(key), plan).parts:
+            k2 = 1 << (part.n_local - 1).bit_length()
+            cap = pipe._capacity(k2)
+            fused = pipe.fused and cap * plan.tile_bytes <= pipe.FUSED_VMEM_BYTES
+            routes["fused_parts" if fused else "unfused_parts"] += 1
+            d = int(dirty[part.tile_ids].sum())
+            if not d:
+                continue
+            routes["dirty_parts"] += 1
+            n = part.n_local if d > cap else d
+            routes["overflow_parts"] += int(d > cap)
+            rows[part.rank] = rows.get(part.rank, 0) + n * plan.tile_bytes
+            (heap_ranks if key == "heap" else kv_ranks).add(part.rank)
+    return {"rows_by_rank": rows, "kv_ranks": sorted(kv_ranks),
+            "heap_ranks": sorted(heap_ranks), **routes}
+
+
+def _device_frees() -> int:
+    """``cudaFree`` calls of the caching allocator so far (0 off the card)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 0
+    return int(torch.cuda.memory_stats().get("num_device_free", 0))
+
+
+def _full_clone(state) -> dict:
+    """A device clone of every tensor, assembled from its blocks."""
+    return {k: state.get(k).full() for k in state.keys()}
+
+
+def _check_clone(state, saved: dict, what: str, sharding=None) -> None:
+    import torch
+
+    if sorted(state.keys()) != sorted(saved):
+        raise AssertionError(f"{what}: restored keys differ")
+    for k, want in saved.items():
+        got = state.get(k)
+        if sharding is not None and got.sharding is not sharding[k]:
+            raise AssertionError(f"{what}: {k} restored under {got.sharding}, not the target")
+        if not torch.equal(got.full(), want):
+            raise AssertionError(f"{what}: tensor {k} differs")
+
+
+def run_shard_path(
+    device,
+    *,
+    layers: int = QWEN3_14B_LAYERS,
+    kv_heads: int = QWEN3_14B_KV_HEADS,
+    head_dim: int = QWEN3_14B_HEAD_DIM,
+    session_tokens: int = SESSION_TOKENS,
+    prefix_tokens: int = PREFIX_TOKENS,
+    tokens_per_turn: int = TOKENS_PER_TURN,
+    heap_bytes: int = HEAP_BYTES,
+    turns: int = TURNS,
+    chunk_bytes: int = CHUNK_BYTES,
+    mesh_shape=SHARD_MESH,
+    other_shape=SHARD_MESH_OTHER,
+    check_turns: int = SHARD_CHECK_TURNS,
+    seed: int = 0,
+) -> dict:
+    """11a: phase 4's C/R cell as a ``ShardedTensorState`` on a logical
+    ``mesh_shape`` mesh under ``DeltaCR(mode="delta")``: ``turns`` turns with
+    a checkpoint after each, a fast rollback, a slow restore onto the same
+    layout and one onto ``other_shape``, and one more turn and checkpoint on
+    the state restored onto the first layout.  Gates: restores
+    byte-identical to device clones; no gather; the per-rank fetched bytes
+    sum to the pipeline's device→host bytes (on the card) and each rank's
+    row bytes are its parts' dirty tiles; the first ``check_turns`` images
+    equal the (1, 1) layout's; the last turn's digests equal blake2b over
+    ``array_to_grid`` rows; on the card, one ``delta_apply`` per part with
+    dirty tiles on each slow restore and one delta-kernel launch per part
+    on the dump after it.  Returns the metrics."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import DeltaCR, DumpPolicy
+    from repro_torch.core.chunk_store import chunk_digest
+    from repro_torch.dist import shard_dump as sd
+    from repro_torch.dist.placement import NamedSharding
+    from repro_torch.dist.shard_dump import ShardedTensorState
+    from repro_torch.kernels import launch_counts, ops as kops
+    from repro_torch.launch.mesh import make_logical_mesh
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    cell = CRCell(layers=layers, kv_heads=kv_heads, head_dim=head_dim,
+                  session_tokens=session_tokens, prefix_tokens=prefix_tokens,
+                  tokens_per_turn=tokens_per_turn, heap_bytes=heap_bytes, chunk_bytes=chunk_bytes)
+    policy = DumpPolicy(mode="delta")
+
+    # -- the (1, 1) layout: the yardstick of the first turns' images
+    ref_state, _ = _shard_cell_state(cell, device, seed, (1, 1))
+    ref_cr = DeltaCR(policy=policy, chunk_bytes=chunk_bytes)
+    ref_cr.checkpoint(ref_state, 0, None)
+    for i in range(check_turns):
+        _shard_turn(cell, ref_state, i, device, seed)
+        ref_cr.checkpoint(ref_state, i + 1, i)
+    ref_cr.wait_dumps()
+    want_images = {c: _image_chunk_digests(ref_cr.dump_future(c).result())
+                   for c in range(check_turns + 1)}
+    ref_cr.shutdown()
+    del ref_state, ref_cr
+    gc.collect()
+
+    # -- the sharded layout
+    state, shard_a = _shard_cell_state(cell, device, seed, mesh_shape)
+    mesh_b = make_logical_mesh(other_shape, device=device)
+    shard_b = {k: NamedSharding(mesh_b, s.spec) for k, s in shard_a.items()}
+    target = dict(shard_a)
+    cr = DeltaCR(policy=policy, chunk_bytes=chunk_bytes,
+                 restore_fn=lambda p: ShardedTensorState.restore_from_payload(p, target))
+    sd.reset_fetch_stats()
+    sync()
+    t = time.perf_counter()
+    cr.checkpoint(state, 0, None)
+    cr.wait_dumps()
+    sync()
+    first_ms = (time.perf_counter() - t) * 1e3
+    if sd.fetch_stats()["gather_bytes"]:
+        raise AssertionError(f"the first dump gathered: {sd.fetch_stats()}")
+    if _image_chunk_digests(cr.dump_future(0).result()) != want_images[0]:
+        raise AssertionError("checkpoint 0 differs from the (1, 1) layout's")
+    rows_per_data = session_tokens // mesh_shape[0]
+
+    def checked_dump(st, c, parent_c, what):
+        """Checkpoint ``st`` as ``c`` over ``parent_c`` and hold its ledger."""
+        sd.reset_fetch_stats()
+        d2h0 = cr.pipeline.d2h_bytes
+        evictions0 = cr.stats.evictions
+        sync()
+        frees0 = _device_frees()
+        t0 = time.perf_counter()
+        cr.checkpoint(st, c, parent_c)
+        t1 = time.perf_counter()
+        # a call that admits a template past the pool's size releases the
+        # oldest one inside it: report that, and the allocator's cudaFree
+        # calls, beside the call's time
+        evicted = cr.stats.evictions - evictions0
+        device_frees = _device_frees() - frees0
+        cr.wait_dumps()
+        sync()
+        t2 = time.perf_counter()
+        image = cr.dump_future(c).result()
+        parent = cr.dump_future(parent_c).result()
+        snap = sd.fetch_stats()
+        d2h = cr.pipeline.d2h_bytes - d2h0
+        if image.mode != "delta":
+            raise AssertionError(f"{what}: a {image.mode} image")
+        if snap["gather_bytes"] or snap["gathers"]:
+            raise AssertionError(f"{what}: the dump gathered {snap['gather_bytes']} B")
+        if sum(snap["by_rank"].values()) != snap["fetched_bytes"]:
+            raise AssertionError(f"{what}: per-rank bytes do not sum to the fetched bytes")
+        if on_card and d2h != snap["fetched_bytes"]:
+            raise AssertionError(f"{what}: {d2h} B device->host, the ranks fetched "
+                                 f"{snap['fetched_bytes']} B")
+        plan = _part_plan(cr, image, parent, st)
+        got_rows = {r: b for r, b in snap["rows_by_rank"].items() if b}
+        if got_rows != plan["rows_by_rank"]:
+            raise AssertionError(f"{what}: rows by rank {got_rows}, expected "
+                                 f"{plan['rows_by_rank']}")
+        return image, {"ckpt": c, "checkpoint_ms": (t1 - t0) * 1e3,
+                       "templates_evicted": evicted, "device_frees": device_frees,
+                       "dump_ms": (t2 - t0) * 1e3, "d2h_bytes": d2h,
+                       "fetched_bytes": snap["fetched_bytes"], "row_bytes": snap["row_bytes"],
+                       "rows_by_rank": got_rows, "dirtied_chunks": image.dirtied_chunks,
+                       "shard_parts": image.shard_parts, **plan}
+
+    turn_rows, saved = [], {}
+    fast_c, slow_c = turns - 2, turns
+    before_last = None
+    for i in range(turns):
+        if i == turns - 1:
+            before_last = {k: state.get(k) for k in state.keys()}
+        _shard_turn(cell, state, i, device, seed)
+        image, row = checked_dump(state, i + 1, i, f"turn {i + 1}")
+        pos = prefix_tokens + i * tokens_per_turn
+        want_kv = sorted(int(r) for r in make_logical_mesh(mesh_shape, device=device)
+                         .ranks[pos // rows_per_data])
+        if row["kv_ranks"] != want_kv:
+            raise AssertionError(f"turn {i + 1}: KV rows from ranks {row['kv_ranks']}, "
+                                 f"expected {want_kv}")
+        if i + 1 <= check_turns and _image_chunk_digests(image) != want_images[i + 1]:
+            raise AssertionError(f"checkpoint {i + 1} differs from the (1, 1) layout's")
+        turn_rows.append(row)
+        if i + 1 in (fast_c, slow_c):
+            saved[i + 1] = _full_clone(state)
+    # -- the last image against blake2b over the port's array_to_grid rows
+    #    (hashed on the host's cores: blake2b releases the GIL)
+    t = time.perf_counter()
+    last = cr.dump_future(slow_c).result()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
+        for key, meta in last.entries.items():
+            host = kops.shard_fetch_assemble(state.get(key))
+            rows = sd.array_to_grid(host, sd.TilePlan.from_meta(meta))
+            if tuple(pool.map(lambda r: chunk_digest(r, 0), rows)) != meta.digests:
+                raise AssertionError(f"checkpoint {slow_c}: {key}'s digests differ from its rows")
+    digest_check_s = time.perf_counter() - t
+
+    # -- shard_block_encode on one KV part and one heap part, as the dumps ran it
+    block_ms = {}
+    if on_card:
+        flush = torch.empty(512 << 20, dtype=torch.uint8, device=device)
+        for key in ("layer0/k", "heap"):
+            plan = sd.TilePlan.from_meta(last.entries[key])
+            old_view = sd.sharded_view(before_last[key], plan)
+            new_view = sd.sharded_view(state.get(key), plan)
+            part, old_part = new_view.parts[0], old_view.parts[0]
+            cap = cr.pipeline._capacity(1 << (part.n_local - 1).bit_length())
+            ob, nb = old_part.block_fn(), part.block_fn()
+            # bound: both blocks read once, the capacity's rows, slots and
+            # count written once
+            block_ms[key] = {
+                "block": list(nb.shape), "tiles": part.n_local, "cap": cap,
+                "ms": time_ms(lambda: kops.shard_block_encode(
+                    ob, nb, tuple(part.counts), tuple(plan.tile), cap), flush=flush),
+                "bound_ms": bound_ms(2 * nb.nbytes + cap * (plan.tile_bytes + 4) + 4),
+            }
+        del flush
+    del before_last
+
+    # -- fast rollback (a template fork)
+    fast = []
+    for _ in range(5):
+        sync()
+        t = time.perf_counter()
+        rolled, how = cr.restore(fast_c)
+        sync()
+        fast.append((time.perf_counter() - t) * 1e3)
+        if how != "fast":
+            raise AssertionError(f"rollback to {fast_c} took the {how} path")
+    _check_clone(rolled, saved[fast_c], f"fast restore of {fast_c}")
+
+    def slow_restore(layout, name):
+        target.clear()
+        target.update(layout)
+        if not cr.evict_template(slow_c):
+            raise AssertionError(f"no template to evict for {slow_c}")
+        before = launch_counts()["delta_apply"]
+        sync()
+        t0 = time.perf_counter()
+        got, how = cr.restore(slow_c)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        if how != "slow":
+            raise AssertionError(f"{name}: restore of {slow_c} took the {how} path")
+        _check_clone(got, saved[slow_c], name, sharding=layout)
+        return got, ms, launch_counts()["delta_apply"] - before
+
+    parent_of_slow = cr.dump_future(slow_c - 1).result()
+    want_apply = _part_plan(cr, last, parent_of_slow, state)["dirty_parts"]
+    restored_a, slow_a_ms, apply_a = slow_restore(shard_a, f"slow restore of {slow_c} onto {mesh_shape}")
+    restored_b, slow_b_ms, apply_b = slow_restore(shard_b, f"slow restore of {slow_c} onto {other_shape}")
+    target.clear()
+    target.update(shard_a)
+    if on_card and (apply_a != want_apply or apply_b != want_apply):
+        raise AssertionError(f"slow restores launched delta_apply {apply_a} and {apply_b} "
+                             f"times, expected {want_apply} (one per part with dirty tiles)")
+    restored_b.release()
+
+    # -- one more turn on the state restored onto the first layout: its base
+    #    is the decoded generation's owned part grids, so every part takes
+    #    the delta kernels (fused, or delta_diff past the fused budget)
+    _shard_turn(cell, restored_a, turns, device, seed)
+    before = launch_counts()
+    _, post = checked_dump(restored_a, turns + 1, slow_c, "the dump after the restore")
+    after = launch_counts()
+    post["launches"] = {k: after[k] - before[k] for k in ("delta_fused", "delta_diff")}
+    if on_card and (post["launches"]["delta_fused"] != post["fused_parts"]
+                    or post["launches"]["delta_diff"] != post["unfused_parts"]):
+        raise AssertionError(f"the dump after the restore launched {post['launches']}, "
+                             f"expected {post['fused_parts']} fused and "
+                             f"{post['unfused_parts']} delta_diff (one per part)")
+    health = cr.health()
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    restored_a.release()
+    rolled.release()
+    cr.shutdown()
+    del state, saved
+    gc.collect()
+    kv_plan = sd.TilePlan.from_meta(last.entries["layer0/k"])
+    heap_plan = sd.TilePlan.from_meta(last.entries["heap"])
+    return {
+        "mesh": list(mesh_shape),
+        "kv_plan": {"grid": list(kv_plan.grid), "tile": list(kv_plan.tile),
+                    "tile_bytes": kv_plan.tile_bytes},
+        "heap_plan": {"grid": list(heap_plan.grid), "tile": list(heap_plan.tile),
+                      "tile_bytes": heap_plan.tile_bytes},
+        "first_dump_ms": first_ms,
+        "checkpoint_call_ms_median": statistics.median(r["checkpoint_ms"] for r in turn_rows),
+        "dump_complete_ms_median": statistics.median(r["dump_ms"] for r in turn_rows),
+        "d2h_bytes_per_checkpoint_median": statistics.median(r["d2h_bytes"] for r in turn_rows),
+        "row_bytes_per_checkpoint_median": statistics.median(r["row_bytes"] for r in turn_rows),
+        "turns": [{k: v for k, v in r.items() if k != "rows_by_rank"} for r in turn_rows],
+        "rows_by_rank_last_turn": turn_rows[-1]["rows_by_rank"],
+        "digest_check_s": digest_check_s,
+        "shard_block_encode": block_ms,
+        "fast_restore_ms_median": statistics.median(fast),
+        "slow_restore_ms": {"same_layout": slow_a_ms, "other_layout": slow_b_ms},
+        "delta_apply_per_slow_restore": apply_a,
+        "post_restore_dump": post,
+        "sharded_dumps": health["sharded_dumps"],
+        "shard_parts": health["shard_parts"],
+        "max_memory_allocated": peak,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+
+
+def _pre_steps(prompt_len: int, page_size: int, steps: int, limit: int = 4096) -> int:
+    """The fewest decode steps after the prompt from which ``steps`` more
+    stay within the same power-of-two page count: the two checkpoints then
+    share one tile plan, so the second diffs per part against the first."""
+    for k in range(limit):
+        s1 = prompt_len + k
+        n1, n2 = -(-s1 // page_size), -(-(s1 + steps) // page_size)
+        if n1 == n2 and n1 & (n1 - 1) == 0:
+            return k
+    raise ValueError(f"no pre-step count fits {steps} steps in {page_size}-token pages")
+
+
+def run_sharded_serving_path(
+    device,
+    *,
+    model=None,
+    config: str = SERVE_CONFIG,
+    num_pages: int = SERVE_PAGES,
+    page_size: int = SERVE_PAGE_SIZE,
+    max_pages: int = SERVE_MAX_PAGES,
+    prompt_len: int = SERVE_PROMPT,
+    steps: int = SHARD_SERVE_STEPS,
+    forks: int = SERVE_FORKS,
+    fork_steps: int = SHARD_FORK_STEPS,
+    slow_steps: int = SERVE_SLOW_STEPS,
+    mesh_shape=SHARD_MESH,
+    chunk_bytes: int = CHUNK_BYTES,
+    seed: int = 0,
+) -> dict:
+    """11b: serving from a pool laid over a logical mesh (KV heads over
+    "model"): phase 6's prompt, prefill, decode to a power-of-two page
+    count, a checkpoint, ``steps`` steps, a delta checkpoint, ``forks`` fast
+    forks at B = ``forks``, and a slow restore that must decode exactly what
+    a fast fork decodes; then the trunk decodes until it gains a page and
+    checkpoints again (c3, whose plan differs from c2's, so it drains
+    whole).  Gates: every KV image entry tiled, no gather, the ranks'
+    fetched bytes equal to the device→host bytes of c1, c2 and c3, no page
+    copied at a fork, and (on the card) one ``delta_apply`` per part with
+    dirty tiles on the slow restore.  Returns the metrics, with
+    ``slow_restore_parts`` (each such part's tiles, tile bytes and dirty
+    tiles) for :func:`check_apply_parts`."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import DeltaCR, DumpPolicy
+    from repro_torch.dist import shard_dump as sd
+    from repro_torch.dist.placement import NamedSharding, PartitionSpec as P
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.mesh import make_logical_mesh
+    from repro_torch.serve import Engine, PagePool, PagedSession
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    rng = np.random.default_rng(seed)
+    if model is None:
+        model = build_serving_model(device, config, seed)
+    cfg = model.cfg
+    mesh = make_logical_mesh(mesh_shape, device=device)
+    pool = PagePool(cfg, num_pages=num_pages, page_size=page_size,
+                    max_pages_per_session=max_pages, device=device,
+                    sharding=NamedSharding(mesh, P(None, None, None, "model", None)))
+    eng = Engine(model, pool)
+    prompt = rng.integers(0, cfg.vocab_size, size=prompt_len).tolist()
+    pre = _pre_steps(prompt_len, page_size, steps)
+    trunk = eng.new_session(prompt)
+    for _ in range(pre):
+        eng.step([trunk])
+    cr = DeltaCR(async_warm=False, policy=DumpPolicy(mode="delta"), chunk_bytes=chunk_bytes,
+                 restore_fn=lambda p: PagedSession.restore_from_payload(pool, p))
+    sd.reset_fetch_stats()
+    cr.checkpoint(trunk, 1, None)
+    cr.wait_dumps()
+    d2h_c1 = cr.pipeline.d2h_bytes
+    snap1 = sd.fetch_stats()
+    first_gather = snap1["gather_bytes"]
+    if on_card and d2h_c1 != snap1["fetched_bytes"]:
+        raise AssertionError(f"c1: {d2h_c1} B device->host, the ranks fetched "
+                             f"{snap1['fetched_bytes']} B")
+    for _ in range(steps):
+        eng.step([trunk])
+    sd.reset_fetch_stats()
+    d2h0 = cr.pipeline.d2h_bytes
+    sync()
+    t = time.perf_counter()
+    cr.checkpoint(trunk, 2, 1)
+    ckpt_ms = (time.perf_counter() - t) * 1e3
+    cr.wait_dumps()
+    sync()
+    dump_ms = (time.perf_counter() - t) * 1e3
+    d2h = cr.pipeline.d2h_bytes - d2h0
+    snap = sd.fetch_stats()
+    img1, img2 = cr.dump_future(1).result(), cr.dump_future(2).result()
+    kv_keys = [k for k in img2.entries if k.startswith("kv/")]
+    if not kv_keys or not all(img.entries[k].tile_grid for img in (img1, img2) for k in kv_keys):
+        raise AssertionError("a KV image entry is not tiled")
+    if img2.mode != "delta" or first_gather or snap["gather_bytes"] or snap["gathers"]:
+        raise AssertionError(f"c2: a {img2.mode} image, {first_gather} B and "
+                             f"{snap['gather_bytes']} B gathered")
+    if on_card and d2h != snap["fetched_bytes"]:
+        raise AssertionError(f"c2: {d2h} B device->host, the ranks fetched "
+                             f"{snap['fetched_bytes']} B")
+    # the parts the slow restore scatters into: those of c1's anchored
+    # generation with a dirty tile: [tiles, tile bytes, dirty tiles] each
+    apply_parts = []
+    dirty_tiles = 0
+    rec = cr.pipeline.record_for(1)
+    try:
+        for k in kv_keys:
+            dirty = np.asarray([a != b for a, b in zip(img2.entries[k].chunk_ids,
+                                                        img1.entries[k].chunk_ids)])
+            dirty_tiles += int(dirty.sum())
+            view = rec.views[k]
+            apply_parts += [[p.n_local, view.chunk_bytes, int(dirty[p.tile_ids].sum())]
+                            for p in view.parts if dirty[p.tile_ids].any()]
+    finally:
+        cr.pipeline.release_record(rec)
+    want_apply = len(apply_parts)
+
+    # -- fast forks at B = forks: no page copied at a fork
+    copied0 = pool.stats.copied_pages
+    fork_ms, kids = [], []
+    for _ in range(forks):
+        t = time.perf_counter()
+        kid, how = cr.restore(2)
+        fork_ms.append((time.perf_counter() - t) * 1e3)
+        if how != "fast":
+            raise AssertionError(f"fork of c2 took the {how} path")
+        kids.append(kid)
+    if pool.stats.copied_pages != copied0:
+        raise AssertionError("forking copied pages")
+    for kid, a in zip(kids, rng.choice(cfg.vocab_size, size=forks, replace=False).tolist()):
+        kid.tokens[-1] = int(a)
+    for _ in range(fork_steps):
+        eng.step(kids)
+
+    # -- slow restore of c2 against a fast fork
+    fast = cr.restore(2)[0]
+    if not cr.evict_template(2):
+        raise AssertionError("no template to evict for c2")
+    before = launch_counts()["delta_apply"]
+    sync()
+    t = time.perf_counter()
+    slow, how = cr.restore(2)
+    sync()
+    slow_ms = (time.perf_counter() - t) * 1e3
+    applied = launch_counts()["delta_apply"] - before
+    if how != "slow":
+        raise AssertionError(f"restore of c2 after eviction took the {how} path")
+    if on_card and applied != want_apply:
+        raise AssertionError(f"the slow restore launched delta_apply {applied} times, "
+                             f"expected {want_apply} (one per part with dirty tiles)")
+    outs = {}
+    for name, sess in (("slow", slow), ("fast", fast)):
+        toks, logits = [], []
+        for _ in range(slow_steps):
+            toks += eng.step([sess])
+            logits.append(torch.from_numpy(np.array(sess.extras["last_logits"])))
+        outs[name] = (toks, logits)
+    if outs["slow"][0] != outs["fast"][0] or not all(
+        torch.equal(a, b) for a, b in zip(outs["slow"][1], outs["fast"][1])
+    ):
+        raise AssertionError("slow-restored and fast-forked sessions decode differently")
+
+    # -- a delta checkpoint after the trunk gains a page: the grid's shape,
+    # and so its tile plan, differs from c2's, so every part drains whole
+    pages_c2 = trunk.n_pages
+    while trunk.n_pages == pages_c2:
+        eng.step([trunk])
+    sd.reset_fetch_stats()
+    d2h0 = cr.pipeline.d2h_bytes
+    cr.checkpoint(trunk, 3, 2)
+    cr.wait_dumps()
+    d2h_c3 = cr.pipeline.d2h_bytes - d2h0
+    snap3 = sd.fetch_stats()
+    img3 = cr.dump_future(3).result()
+    if snap3["gather_bytes"] or snap3["gathers"]:
+        raise AssertionError(f"c3: {snap3['gather_bytes']} B gathered")
+    if on_card and d2h_c3 != snap3["fetched_bytes"]:
+        raise AssertionError(f"c3: {d2h_c3} B device->host, the ranks fetched "
+                             f"{snap3['fetched_bytes']} B")
+    kv_bytes_c3 = sum(int(np.prod(img3.entries[k].shape)) * 2 for k in kv_keys)
+    health = cr.health()
+    for sess in kids + [fast, slow, trunk]:
+        sess.release()
+    cr.shutdown()
+    plan = sd.TilePlan.from_meta(img2.entries[kv_keys[0]])
+    plan3 = sd.TilePlan.from_meta(img3.entries[kv_keys[0]])
+    return {
+        "config": cfg.name,
+        "mesh": list(mesh_shape),
+        "pages": plan.shape[0],
+        "pre_steps": pre,
+        "kv_plan": {"shape": list(plan.shape), "grid": list(plan.grid),
+                    "tile_bytes": plan.tile_bytes},
+        "checkpoint_call_ms": ckpt_ms,
+        "dump_complete_ms": dump_ms,
+        "d2h_bytes_c1": d2h_c1,
+        "fetched_bytes_c1": snap1["fetched_bytes"],
+        "d2h_bytes_c2": d2h,
+        "fetched_bytes_c2": snap["fetched_bytes"],
+        "dirty_tiles_c2": dirty_tiles,
+        "slow_restore_parts": apply_parts,
+        "c3_pages": plan3.shape[0],
+        "c3_kv_plan_grid": list(plan3.grid),
+        "d2h_bytes_c3_new_page": d2h_c3,
+        "fetched_bytes_c3": snap3["fetched_bytes"],
+        "kv_bytes_c3": kv_bytes_c3,
+        "fork_ms_median": statistics.median(fork_ms),
+        "slow_restore_ms": slow_ms,
+        "delta_apply_slow_restore": applied,
+        "shard_parts": health["shard_parts"],
+        "decode_tokens_compared": len(outs["slow"][0]),
+    }
+
+
+def check_shard_kernels(device) -> dict:
+    """``delta_fused``, ``delta_diff`` and ``delta_apply`` against their plain
+    versions, bit for bit, at phase 11a's part grids: a KV part (32 tiles of
+    64 KiB, capacity 16) and a heap part (16 tiles of 8 MiB)."""
+    import torch
+
+    from repro_torch.kernels import delta_apply, delta_diff, delta_fused, ref
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    errs = {"delta_fused": 0.0, "delta_diff": 0.0, "delta_apply": 0.0}
+    for N, C in ((32, 65536), (16, 8 << 20)):
+        for n_dirty in (0, N // 3, N):
+            dirty = torch.randperm(N, generator=gen, device=device)[:n_dirty].tolist()
+            old, new = _dirty_pair(gen, N, C, dirty, device)
+            if C == 65536:
+                got = delta_fused(old, new, max_changed=N // 2)
+                errs["delta_fused"] = max(errs["delta_fused"], max_abs_err(
+                    got, ref.fused_encode_ref(old, new, N // 2)))
+            else:
+                errs["delta_diff"] = max(errs["delta_diff"], max_abs_err(
+                    delta_diff(old, new), ref.delta_diff_ref(old, new)))
+            M = 1 << max(n_dirty - 1, 0).bit_length()
+            data = torch.randint(0, 256, (M, C), generator=gen, device=device, dtype=torch.uint8)
+            idx = torch.full((M,), -1, dtype=torch.int32, device=device)
+            idx[:n_dirty] = torch.as_tensor(dirty, dtype=torch.int32, device=device)
+            want = ref.delta_apply_ref(old, data, idx)
+            errs["delta_apply"] = max(errs["delta_apply"],
+                                      max_abs_err(delta_apply(old.clone(), data, idx), want))
+            del old, new, data
+    torch.cuda.synchronize()
+    return errs
+
+
+def check_apply_parts(device, parts, seed: int = 12) -> float:
+    """``delta_apply`` against its plain version, bit for bit, at each part
+    grid of ``parts`` (``[tiles, tile bytes, dirty tiles]``: 11b's slow
+    restore's, as :func:`run_sharded_serving_path` reports them), with the
+    dirty rows padded to a power of two as the decode pads them."""
+    import torch
+
+    from repro_torch.kernels import delta_apply, ref
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    err = 0.0
+    for N, C, n_dirty in parts:
+        base = torch.randint(0, 256, (N, C), generator=gen, device=device, dtype=torch.uint8)
+        M = 1 << max(n_dirty - 1, 0).bit_length()
+        data = torch.randint(0, 256, (M, C), generator=gen, device=device, dtype=torch.uint8)
+        idx = torch.full((M,), -1, dtype=torch.int32, device=device)
+        idx[:n_dirty] = torch.randperm(N, generator=gen, device=device)[:n_dirty].to(torch.int32)
+        want = ref.delta_apply_ref(base, data, idx)
+        err = max(err, max_abs_err(delta_apply(base.clone(), data, idx), want))
+        del base, data, want
+    torch.cuda.synchronize()
+    return err
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the remaining model families
 # ---------------------------------------------------------------------------
 # 9a: the JAX package's src/repro/configs/qwen3_moe_30b_a3b.py, whole; 9b:
@@ -3199,7 +3896,50 @@ def main() -> int:
     say(f"[8 persist] phase 8 ran {time.perf_counter() - t8:.1f} s (card: {card})")
     gc.collect()
     torch.cuda.empty_cache()
-    say(f"[6 serving] B = {SERVE_FORKS} decode step profiled after phases 7 and 8: "
+
+    # -- phase 11: shard-native dumps over a logical mesh (launch counts over each part)
+    t11 = time.perf_counter()
+    shard_errs = check_shard_kernels(device)
+    say(f"[11 kernels] bit-exact at 11a's part grids: {json.dumps(shard_errs)}")
+    for k, e in shard_errs.items():
+        errs[k] = max(errs[k], e)
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    try:
+        shard = run_shard_path(device)
+    except AssertionError as exc:
+        fail(f"phase 11a: {exc}")
+    shard_launches = launch_counts()
+    say(f"[11a sharded C/R] launches {json.dumps(shard_launches)}")
+    for k in ("delta_fused", "delta_diff", "delta_apply"):
+        if shard_launches[k] <= 0:
+            fail(f"kernel {k} was not launched on phase 11a's path")
+    say(f"[11a sharded C/R] {json.dumps(shard)} (card: {card})")
+    for k, n in shard_launches.items():
+        launches[k] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    try:
+        shard_serve = run_sharded_serving_path(device, model=model)
+    except AssertionError as exc:
+        fail(f"phase 11b: {exc}")
+    serve11_launches = launch_counts()
+    say(f"[11b sharded pool] launches {json.dumps(serve11_launches)}")
+    for k in ("paged_attention", "page_copy_stacked", "delta_apply"):
+        if serve11_launches[k] <= 0:
+            fail(f"kernel {k} was not launched on phase 11b's path")
+    say(f"[11b sharded pool] {json.dumps(shard_serve)} (card: {card})")
+    for k, n in serve11_launches.items():
+        launches[k] += n
+    apply_err = check_apply_parts(device, shard_serve["slow_restore_parts"])
+    errs["delta_apply"] = max(errs["delta_apply"], apply_err)
+    say(f"[11 kernels] delta_apply bit-exact at 11b's slow-restore part grids "
+        f"{json.dumps(shard_serve['slow_restore_parts'])}: {apply_err}")
+    say(f"[11 sharded] phase 11 ran {time.perf_counter() - t11:.1f} s (card: {card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[6 serving] B = {SERVE_FORKS} decode step profiled after phases 7, 8 and 11: "
         f"{json.dumps(profile_decode_step(device, model))} (card: {card})")
     del model
     gc.collect()

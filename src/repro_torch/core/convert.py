@@ -20,15 +20,32 @@ import torch
 from .deltacr import CowTensorState
 
 __all__ = [
+    "as_words",
+    "from_words",
     "params_from_numpy",
     "params_to_numpy",
+    "sharded_state_from_numpy",
     "state_from_numpy",
     "state_to_numpy",
     "tensor_from_numpy",
     "tensor_to_numpy",
 ]
 
-_WORDS = {torch.bfloat16: np.uint16}
+_WORDS = {torch.bfloat16: torch.int16}
+
+
+def as_words(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in a dtype numpy can hold, bit for bit: bfloat16 as int16
+    words (a view), any other dtype unchanged."""
+    words = _WORDS.get(t.dtype)
+    return t if words is None else t.view(words)
+
+
+def from_words(a: np.ndarray, dtype: torch.dtype) -> Any:
+    """Inverse of :func:`as_words` on the host: the words of a bfloat16
+    tensor come back as a CPU tensor sharing ``a``'s memory; an array of
+    any other dtype is returned as it is."""
+    return torch.from_numpy(a).view(dtype) if dtype in _WORDS else a
 
 
 def tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
@@ -45,9 +62,8 @@ def tensor_to_numpy(t: Any) -> np.ndarray:
     if not isinstance(t, torch.Tensor):
         return np.asarray(t)
     t = t.detach().cpu().contiguous()
-    if t.dtype in _WORDS:
-        return t.view(torch.int16).numpy().view(_WORDS[t.dtype]).copy()
-    return t.numpy().copy()
+    host = as_words(t).numpy()
+    return (host.view(np.uint16) if t.dtype in _WORDS else host).copy()
 
 
 def state_from_numpy(
@@ -63,6 +79,30 @@ def state_from_numpy(
 def state_to_numpy(state: CowTensorState) -> Dict[str, np.ndarray]:
     """Host copies of every tensor of ``state`` (bfloat16 as uint16 words)."""
     return {k: tensor_to_numpy(state.get(k)) for k in state.keys()}
+
+
+def sharded_state_from_numpy(
+    arrays: Dict[str, np.ndarray], shardings: Dict[str, Any], device: Any = None
+) -> Any:
+    """A ``dist.shard_dump.ShardedTensorState`` holding the bits of
+    ``arrays``: each key placed on its ``NamedSharding`` in ``shardings``
+    (block by block onto the mesh's ranks), a key without one as a plain
+    tensor on ``device`` (the card by default)."""
+    from ..dist.placement import device_put
+    from ..dist.shard_dump import ShardedTensorState
+    from .deltacr import resolve_device
+
+    out: Dict[str, Any] = {}
+    dev = None
+    for key, arr in arrays.items():
+        target = shardings.get(key)
+        if target is not None:
+            out[key] = device_put(tensor_from_numpy(arr), target)
+        else:
+            if dev is None:
+                dev = resolve_device(device)
+            out[key] = tensor_from_numpy(arr).to(dev)
+    return ShardedTensorState(out)
 
 
 def params_from_numpy(tree: Dict[str, Any], device: Any = None) -> Dict[str, Any]:

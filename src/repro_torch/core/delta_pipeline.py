@@ -37,8 +37,13 @@ the digest path, which is still O(S) hashing but O(Δ) store writes.
 
 Grids are numpy arrays (host state: an exact numpy compare and scatter)
 or torch tensors (device state: the CUDA kernels on the card, their plain
-versions for a tensor on the CPU).  The mesh-sharded and tiled branches of
-the JAX package are not ported yet.
+versions for a tensor on the CPU).  A ``dist.shard_dump.ShardedView``
+(a tensor over a mesh, tiled by its canonical ``TilePlan``) fans out into
+one task per part, each diffed and drained from its own block, and its
+images are *tiled*: ``TensorMeta.tile_grid`` names the plan, and decode
+rebuilds them per part (``delta_apply`` on each part's grid) or, without a
+sharded base, through the tile layout of a rebuilt grid (on its device) or
+of the store's chunks (on the host).
 """
 from __future__ import annotations
 
@@ -109,6 +114,13 @@ def _upload_grid(grid: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(grid).to(device)
 
 
+def _part_rows(grid: Any, part: Any) -> Any:
+    """A shard part's rows of a whole tile-layout grid (numpy or a tensor)."""
+    if isinstance(grid, np.ndarray):
+        return grid[part.tile_ids]
+    return grid.index_select(0, torch.as_tensor(part.tile_ids, device=grid.device))
+
+
 __all__ = [
     "ChunkedView",
     "DeltaDumpPipeline",
@@ -143,6 +155,11 @@ class ChunkedView:
     trailing_pad: int
     grid_fn: Callable[[], Any] = field(repr=False)
     _grid: Any = field(default=None, repr=False)
+    # Non-empty when grid rows are the tiles of a shard-native TilePlan
+    # (dist.shard_dump) instead of a flat row-major byte split.  Kernel
+    # diff/apply bases only pair with views of the *same* layout; metadata
+    # digest compares are layout-independent and need no guard.
+    tile_grid: Tuple[int, ...] = ()
 
     @property
     def grid(self) -> Any:
@@ -277,6 +294,37 @@ class EncodeResult:
     drain_ms: float = 0.0
     commit_ms: float = 0.0
     stream_wall_ms: float = 0.0
+    shard_parts: int = 0             # per-part tasks run (sharded views only)
+
+
+@dataclass
+class _ShardRows:
+    """One shard part's drained rows, keyed by *global* chunk id.
+
+    Produced by the per-part tasks of a sharded view; holds raw
+    ``(payload, digest)`` pairs only — store folding is deferred to
+    :meth:`DeltaDumpPipeline._commit_sharded_key`, which assembles every
+    part's rows in global chunk order so the resulting metadata is
+    chunk-for-chunk identical to a single-rank dump.  ``chunk_ids`` stays
+    empty: a part holds no store references, so the transactional rollback
+    walk sees nothing to decref here."""
+
+    plan_key: str                    # the owning tensor key (task key adds #shardK)
+    rows: Dict[int, Tuple[bytes, Optional[bytes]]]
+    kind: str                        # "kernel" | "full"
+    chunk_ids: Tuple[int, ...] = ()
+
+
+@dataclass
+class _ShardedPlan:
+    """Bookkeeping for one sharded view's fan-out: the per-part tasks plus
+    the commit-time context (usable parent meta, whether any part diffed
+    against a base)."""
+
+    view: Any                        # dist.shard_dump.ShardedView
+    pm: Optional[TensorMeta]
+    tasks: List["_KeyTask"]
+    used_base: bool
 
 
 @dataclass
@@ -442,6 +490,7 @@ class DeltaDumpPipeline:
                 n_chunks=n,
                 trailing_pad=meta.trailing_pad,
                 grid_fn=lambda g=base: g,
+                tile_grid=tuple(meta.tile_grid),
             )
         if not views:
             return False
@@ -531,6 +580,7 @@ class DeltaDumpPipeline:
     ) -> "EncodeResult":
         store = self.store
         tasks: List[_KeyTask] = []
+        sharded: "OrderedDict[str, _ShardedPlan]" = OrderedDict()
         for key, view in gen.views.items():
             pm = parent_entries.get(key)
             # NOTE: the kernel path does not require parent digests — its
@@ -544,15 +594,26 @@ class DeltaDumpPipeline:
                 res.clean_keys += 1
                 continue
             base = parent_rec.views.get(key) if parent_rec is not None else None
-            tasks.append(self._plan_key(key, view, pm if pm_ok else None, base))
+            if hasattr(view, "parts"):   # dist.shard_dump.ShardedView
+                splan = self._plan_sharded_key(key, view, pm if pm_ok else None, base)
+                sharded[key] = splan
+                tasks.extend(splan.tasks)
+            else:
+                tasks.append(self._plan_key(key, view, pm if pm_ok else None, base))
 
         items = [t.as_window_item() for t in tasks]
         streamed = self.stream is not None and self.stream.should_stream(items)
+        shard_out: Dict[str, List[_ShardRows]] = {}
         try:
             if streamed:
-                self._run_streamed(tasks, items, res, cancel, priority)
+                self._run_streamed(tasks, items, res, cancel, priority, shard_out)
             else:
-                self._run_sync(tasks, res, cancel)
+                self._run_sync(tasks, res, cancel, shard_out)
+            # assemble each sharded key's parts in global chunk order — the
+            # store folds run on this (single) thread, so ids and digests
+            # come out exactly as a single-rank dump would produce them
+            for key, splan in sharded.items():
+                self._commit_sharded_key(key, splan, shard_out.get(key, []), res)
             # extras stay inside the transaction: a failure here must also
             # roll back every reference the tasks/clean keys acquired
             for key, arr in gen.extras.items():
@@ -589,6 +650,11 @@ class DeltaDumpPipeline:
         if (
             pm is not None
             and base is not None
+            # kernel bases must share the flat row layout; tiled metadata or
+            # a sharded/tiled base pairs only with the sharded planner
+            and not pm.tile_grid
+            and not getattr(base, "tile_grid", ())
+            and not hasattr(base, "parts")
             and base.chunk_bytes == view.chunk_bytes
             and len(pm.chunk_ids) == base.n_chunks
         ):
@@ -784,6 +850,244 @@ class DeltaDumpPipeline:
         meta, n_dirty = self._commit_kernel_meta(view, pm, K, rows)
         return meta, n_dirty, "kernel"
 
+    # ----------------------------------------------- encode: sharded views
+    #
+    # A dist.shard_dump.ShardedView fans out into one task per part: the
+    # diff/compact runs on the part's own device against that part's slice
+    # of the base, and the drain fetches exactly the compacted dirty rows
+    # (front-packed, an exact [:count] slice) from that part alone — no
+    # gather ever happens, and the bytes land per rank in the
+    # shard_dump.FETCH ledger.  Store folding is deferred: parts return
+    # _ShardRows and _commit_sharded_key assembles global chunk order.
+    def _plan_sharded_key(
+        self, key: str, view: Any, pm: Optional[TensorMeta], base: Optional[Any]
+    ) -> _ShardedPlan:
+        pm_use = (
+            pm
+            if (
+                pm is not None
+                and pm.shape == tuple(view.shape)
+                and tuple(pm.tile_grid) == tuple(view.plan.grid)
+                and len(pm.chunk_ids) == view.n_chunks
+            )
+            else None
+        )
+        # a usable diff base is either the parent's ShardedView under the
+        # identical plan (per-part diff) or a tile-layout grid rebuilt from
+        # the store (host numpy or a device tensor), whose rows each part
+        # takes by its tile ids
+        base_map = None
+        flat_base = None
+        if pm_use is not None and base is not None:
+            if hasattr(base, "parts"):
+                if tuple(base.plan.grid) == tuple(view.plan.grid):
+                    base_map = base.part_map()
+            elif (
+                tuple(getattr(base, "tile_grid", ())) == tuple(view.plan.grid)
+                and base.chunk_bytes == view.chunk_bytes
+                and base.n_chunks == view.n_chunks
+            ):
+                flat_base = base.grid
+        tasks: List[_KeyTask] = []
+        used_base = False
+        for k, part in enumerate(view.parts):
+            tkey = f"{key}#shard{k}"
+            weight = part.n_local * view.chunk_bytes
+            bpart = base_map.get(part.tile_ids.tobytes()) if base_map is not None else None
+            # keyed by rank: several ranks of a logical mesh share a card
+            if bpart is not None and part.device is not None and bpart.rank == part.rank:
+                used_base = True
+                tasks.append(self._plan_shard_kernel(
+                    tkey, key, view, part, (lambda bp=bpart: bp.grid), weight,
+                    base_block_fn=bpart.block_fn,
+                ))
+            elif flat_base is not None and part.device is not None:
+                used_base = True
+                tasks.append(self._plan_shard_kernel(
+                    tkey, key, view, part, (lambda g=flat_base, p=part: _part_rows(g, p)), weight,
+                ))
+            else:
+                tasks.append(self._plan_shard_full(tkey, key, part, weight))
+        return _ShardedPlan(view=view, pm=pm_use, tasks=tasks, used_base=used_base)
+
+    def _note_part_fetch(self, part: Any, fetch: "kops.HostFetch", rows: int = 0) -> None:
+        from ..dist.shard_dump import FETCH
+
+        self._note_d2h(fetch)
+        FETCH.note_fetch(part.rank, fetch.nbytes, rows=rows)
+
+    def _part_grid_host(self, part: Any) -> np.ndarray:
+        """A part's whole grid on the host (its own bytes only)."""
+        g = part.grid
+        if isinstance(g, np.ndarray):
+            return g
+        fetch = kops.start_host_fetch(g)
+        self._note_part_fetch(part, fetch, rows=fetch.nbytes)
+        return fetch.wait()[0]
+
+    def _plan_shard_kernel(
+        self, tkey: str, plan_key: str, view: Any, part: Any, base_fn, weight: int,
+        *, base_block_fn=None,
+    ) -> _KeyTask:
+        K = part.n_local
+        K2 = 1 << (K - 1).bit_length()
+        cap = self._capacity(K2)
+        use_fused = self.fused and cap * view.chunk_bytes <= self.FUSED_VMEM_BYTES
+        block_path = base_block_fn is not None and part.block_fn is not None
+
+        def encode():
+            if block_path:
+                # block-native path: diff the two live blocks in their
+                # native layout (compare + reduce) and extract only the
+                # dirty tiles — neither side pays the O(state) tile-grid
+                # transpose; rows are bit-identical to the grid path's.
+                # Checksum lanes are computed in drain over the fetched rows.
+                data, idx, count = kops.shard_block_encode(
+                    base_block_fn(), part.block_fn(), tuple(part.counts),
+                    tuple(view.plan.tile), cap,
+                )
+                return data, None, kops.start_host_fetch(idx, count)
+            old, new = self._padded_pair(base_fn(), part.grid, K, K2)
+            if use_fused:
+                data, idx, count, sums = kops.fused_encode(old, new, cap)
+            else:
+                data, idx, count = kops.delta_encode(old, new, cap)
+                sums = None
+            # start only the control copies; the rows follow in drain as an
+            # exact [:count] slice, so moved bytes stay ∝ the delta
+            return data, sums, kops.start_host_fetch(idx, count)
+
+        def drain(enc):
+            data, sums, control = enc
+            self._note_part_fetch(part, control)
+            idx_np, count_np = control.wait()
+            n = int(count_np)
+            if n > cap:
+                # capacity overflow: this part drains in full — still only
+                # its own block's bytes, never a gather
+                rows = self._drain_rows(self._part_grid_host(part), range(K), keys=part.tile_ids)
+                return _ShardRows(plan_key, rows, "full")
+            if n == 0:
+                return _ShardRows(plan_key, {}, "kernel")
+            verify = use_fused and (sums is not None or block_path)
+            if verify and self.fused_verify:
+                lanes = sums[:n] if sums is not None else kops.chunk_checksums_device(data[:n])
+                fetch = kops.start_host_fetch(data[:n], lanes)
+            else:
+                fetch = kops.start_host_fetch(data[:n])
+            self._note_part_fetch(part, fetch, rows=n * view.chunk_bytes)
+            fetched = fetch.wait()
+            data_np = fetched[0]
+            if verify:
+                faults.fire("kernels.fused")
+                if self.fused_verify:
+                    got = kops.chunk_checksums_host(data_np)
+                    want = fetched[1]
+                    if not np.array_equal(got, want):
+                        bad = np.flatnonzero(np.any(got != want, axis=1))
+                        self.fused_checksum_mismatches += len(bad)
+                        raise FaultError(
+                            f"fused dump checksum mismatch on {tkey!r}: "
+                            f"{len(bad)}/{n} fetched rows fail the "
+                            f"device-computed lanes (attempt rolls back)"
+                        )
+            gids = part.tile_ids[np.asarray(idx_np[:n], dtype=np.int64)]
+            return _ShardRows(plan_key, self._drain_rows(data_np, range(n), keys=gids), "kernel")
+
+        return _KeyTask(key=tkey, weight=weight, encode=encode, drain=drain, commit=lambda sr: sr)
+
+    def _plan_shard_full(self, tkey: str, plan_key: str, part: Any, weight: int) -> _KeyTask:
+        def drain(_enc):
+            # a whole-tensor fallback part's grid is a host grid whose
+            # build already counted its gather
+            rows = self._drain_rows(self._part_grid_host(part), range(part.n_local),
+                                    keys=part.tile_ids)
+            return _ShardRows(plan_key, rows, "full")
+
+        return _KeyTask(key=tkey, weight=weight, encode=lambda: None, drain=drain,
+                        commit=lambda sr: sr)
+
+    def _commit_sharded_key(
+        self,
+        key: str,
+        splan: _ShardedPlan,
+        shard_rows: List[_ShardRows],
+        res: EncodeResult,
+    ) -> None:
+        """Fold one sharded view's drained parts into the store.
+
+        Walks global chunk ids 0..n-1 in order on the caller thread — store
+        mutation stays single-threaded and the resulting metadata (ids,
+        digests, tile layout) is bit-identical to what a single-rank dump
+        of the same tensor under the same TilePlan produces, which is the
+        cross-layout determinism invariant the differential tests pin."""
+        view = splan.view
+        pm = splan.pm
+        store = self.store
+        rows: Dict[int, Tuple[bytes, Optional[bytes]]] = {}
+        kinds = set()
+        for sr in shard_rows:
+            rows.update(sr.rows)
+            kinds.add(sr.kind)
+        pm_digests_ok = pm is not None and len(pm.digests) == len(pm.chunk_ids)
+        with_digests = store.dedupe and (pm is None or pm_digests_ok)
+        ids: List[int] = []
+        digests: List[bytes] = []
+        dirtied = 0
+        try:
+            for i in range(view.n_chunks):
+                pr = rows.get(i)
+                if pr is None:  # clean under the per-part diff
+                    if pm is None:
+                        raise FaultError(
+                            f"sharded dump of {key!r} missing chunk {i} "
+                            f"with no parent metadata"
+                        )
+                    store.incref(pm.chunk_ids[i])
+                    ids.append(pm.chunk_ids[i])
+                    if with_digests:
+                        digests.append(pm.digests[i])
+                    continue
+                payload, digest = pr
+                same = False
+                if pm is not None:
+                    if digest is not None and pm_digests_ok:
+                        same = pm.digests[i] == digest
+                    elif digest is None:  # digest-less store: byte compare
+                        same = store.get(pm.chunk_ids[i]) == payload
+                if same:
+                    store.incref(pm.chunk_ids[i])
+                    ids.append(pm.chunk_ids[i])
+                    if with_digests:
+                        digests.append(digest)
+                    continue
+                if digest is not None:
+                    ids.append(store.put_digested(payload, digest=digest, pad=0))
+                else:
+                    ids.append(store.put(payload, pad=0))
+                if with_digests:
+                    digests.append(digest)
+                dirtied += 1
+        except BaseException:
+            # partial fold: refs taken so far belong to no entry yet —
+            # return them so the dump's rollback leaves the store balanced
+            store.decref_many(ids)
+            raise
+        res.entries[key] = TensorMeta(
+            shape=tuple(view.shape),
+            dtype=view.dtype,
+            chunk_ids=tuple(ids),
+            digests=tuple(digests) if with_digests else (),
+            trailing_pad=0,
+            tile_grid=tuple(view.plan.grid),
+        )
+        res.dirtied += dirtied
+        res.shard_parts += len(splan.tasks)
+        if splan.used_base and "full" not in kinds:
+            res.kernel_keys += 1
+        else:
+            res.full_keys += 1
+
     # ---------------------------------------------------- encode: execution
     def _merge_task_result(
         self, res: EncodeResult, key: str, out: Tuple[TensorMeta, int, str]
@@ -801,13 +1105,18 @@ class DeltaDumpPipeline:
         tasks: List[_KeyTask],
         res: EncodeResult,
         cancel: Optional[threading.Event],
+        shard_out: Dict[str, List[_ShardRows]],
     ) -> None:
         for task in tasks:
             if cancel is not None and cancel.is_set():
                 raise StreamCancelled(
                     f"dump cancelled after {len(res.entries)} tensors (sync path)"
                 )
-            self._merge_task_result(res, task.key, task.run_sync())
+            out = task.run_sync()
+            if isinstance(out, _ShardRows):
+                shard_out.setdefault(out.plan_key, []).append(out)
+            else:
+                self._merge_task_result(res, task.key, out)
 
     def _run_streamed(
         self,
@@ -816,6 +1125,7 @@ class DeltaDumpPipeline:
         res: EncodeResult,
         cancel: Optional[threading.Event],
         priority: str,
+        shard_out: Dict[str, List[_ShardRows]],
     ) -> None:
         assert self.stream is not None
         out: Dict[str, Any] = {}
@@ -827,7 +1137,11 @@ class DeltaDumpPipeline:
             self._rollback(out)
             raise
         for task in tasks:                      # deterministic merge order
-            self._merge_task_result(res, task.key, out[task.key])
+            o = out[task.key]
+            if isinstance(o, _ShardRows):
+                shard_out.setdefault(o.plan_key, []).append(o)
+            else:
+                self._merge_task_result(res, task.key, o)
         res.streamed = True
         res.windows = stats.windows
         res.window_bytes = stats.window_bytes
@@ -992,9 +1306,18 @@ class DeltaDumpPipeline:
             grid: Any = None
             base = parent_rec.views.get(name) if parent_rec is not None else None
             pm = parent_image.entries.get(name) if parent_image is not None else None
+            if meta.tile_grid:
+                # shard-native image: per-part delta_apply when the base is
+                # still sharded under the same plan, the tile layout else
+                payload[name], view = self._decode_tiled(meta, pm, base)
+                new_views[name] = view
+                continue
             if (
                 base is not None
                 and pm is not None
+                and not hasattr(base, "parts")
+                and not getattr(base, "tile_grid", ())
+                and not pm.tile_grid
                 and len(pm.chunk_ids) == base.n_chunks
                 and meta.dtype == pm.dtype
                 and self._rows_match(meta, base.chunk_bytes)
@@ -1051,25 +1374,148 @@ class DeltaDumpPipeline:
         generation's grid is a view of an anchored template and must never
         change (the JAX call donates nothing either)."""
         src = base.grid
-        dev = src.device
         if base.n_chunks >= N:
             grid = src[:N].clone()
         else:
-            grid = torch.zeros((N, base.chunk_bytes), dtype=torch.uint8, device=dev)
+            grid = torch.zeros((N, base.chunk_bytes), dtype=torch.uint8, device=src.device)
             grid[: base.n_chunks] = src
-        if dirty:
-            # pow2-pad the scatter rows (idx -1 = no-op in the kernel), the
-            # JAX package's launch geometry
-            M = 1 << (len(dirty) - 1).bit_length()
-            rows = np.zeros((M, base.chunk_bytes), np.uint8)
-            idx = np.full((M,), -1, np.int32)
-            for j, i in enumerate(dirty):
-                rows[j] = np.frombuffer(self.store.get(meta.chunk_ids[i]), np.uint8)
-                idx[j] = i
-            kops.delta_apply(
-                grid, torch.from_numpy(rows).to(dev), torch.from_numpy(idx).to(dev)
-            )
+        self._apply_rows(grid, [(i, meta.chunk_ids[i]) for i in dirty])
         return grid
+
+    def _apply_rows(self, grid: torch.Tensor, rows_ids: List[Tuple[int, int]]) -> None:
+        """Scatter store chunks into ``grid`` in place with
+        ``kernels.delta_apply``: ``rows_ids`` lists (grid row, chunk id).
+        The scatter rows are pow2-padded (idx -1 = no-op in the kernel), the
+        JAX package's launch geometry; nothing launches for no rows."""
+        if not rows_ids:
+            return
+        M = 1 << (len(rows_ids) - 1).bit_length()
+        rows = np.zeros((M, grid.shape[1]), np.uint8)
+        idx = np.full((M,), -1, np.int32)
+        for j, (i, cid) in enumerate(rows_ids):
+            rows[j] = np.frombuffer(self.store.get(cid), np.uint8)
+            idx[j] = i
+        dev = grid.device
+        kops.delta_apply(grid, torch.from_numpy(rows).to(dev), torch.from_numpy(idx).to(dev))
+
+    # ------------------------------------------------------- decode: tiled
+    def _decode_tiled(
+        self, meta: TensorMeta, pm: Optional[TensorMeta], base: Optional[Any]
+    ) -> Tuple[Any, Any]:
+        """Rebuild a shard-native (tiled) tensor and its next base view.
+
+        The route follows where the parent base lives, and an error on a
+        route raises; no route falls back to another.  A ShardedView whose
+        parts sit on devices, under the same TilePlan: each part scatters
+        only its own dirty tiles with ``delta_apply`` on its own device and
+        the global tensor reassembles from per-rank blocks (no host
+        round-trip of clean bytes).  A tile grid rebuilt on a device (after
+        ``recover``): the image's dirty tiles go in with ``delta_apply`` on a
+        clone.  Otherwise (a host base, a misaligned layout's gather part,
+        or no usable base) clean tiles come from a host grid or the store,
+        and the tile layout is inverted on the host."""
+        from ..dist import shard_dump as sd
+
+        plan = sd.TilePlan.from_meta(meta)
+        pm_ok = (
+            pm is not None
+            and tuple(pm.tile_grid) == tuple(meta.tile_grid)
+            and pm.dtype == meta.dtype
+            and pm.shape == meta.shape
+            and len(pm.chunk_ids) == len(meta.chunk_ids)
+        )
+        if (
+            pm_ok
+            and base is not None
+            and hasattr(base, "parts")
+            and tuple(base.plan.grid) == tuple(plan.grid)
+            and all(part.device is not None for part in base.parts)
+        ):
+            return self._decode_tiled_sharded(meta, pm, base, plan)
+        n = plan.n_tiles
+        flat_base = None
+        if (
+            pm_ok
+            and base is not None
+            and not hasattr(base, "parts")
+            and tuple(getattr(base, "tile_grid", ())) == tuple(plan.grid)
+            and base.chunk_bytes == plan.tile_bytes
+            and base.n_chunks == n
+        ):
+            flat_base = base.grid
+        if isinstance(flat_base, torch.Tensor):
+            grid = flat_base.clone()
+            self._apply_rows(grid, [
+                (i, meta.chunk_ids[i]) for i in range(n) if meta.chunk_ids[i] != pm.chunk_ids[i]
+            ])
+            arr = sd.device_grid_to_block(grid, plan.grid, plan.tile, meta.dtype)
+        else:
+            store = self.store
+            grid = np.empty((n, plan.tile_bytes), np.uint8)
+            for i in range(n):
+                if flat_base is not None and meta.chunk_ids[i] == pm.chunk_ids[i]:
+                    grid[i] = flat_base[i]
+                else:
+                    grid[i] = np.frombuffer(store.get(meta.chunk_ids[i]), np.uint8)
+            arr = sd.grid_to_array(grid, plan)
+        view = ChunkedView(
+            shape=tuple(meta.shape),
+            dtype=meta.dtype,
+            nbytes=plan.nbytes,
+            chunk_bytes=plan.tile_bytes,
+            n_chunks=n,
+            trailing_pad=0,
+            grid_fn=lambda g=grid: g,
+            tile_grid=tuple(plan.grid),
+        )
+        return arr, view
+
+    def _decode_tiled_sharded(
+        self, meta: TensorMeta, pm: TensorMeta, base: Any, plan: Any
+    ) -> Tuple[Any, Any]:
+        """Per-part restore: each part of the base scatters the image's
+        dirty tiles of its own block into a clone of its grid (one
+        ``delta_apply`` per part with dirty tiles; the base never changes),
+        then its block is rebuilt from the grid, and every rank of the
+        base's sharding takes the block at its index.  A base without a
+        sharding (a plain tensor) is one part, and its block is the tensor."""
+        from ..dist import shard_dump as sd
+
+        out_parts = []
+        block_by_off: Dict[Tuple[int, ...], torch.Tensor] = {}
+        for part in base.parts:
+            gids = part.tile_ids
+            dirty = [
+                (j, meta.chunk_ids[int(g)])
+                for j, g in enumerate(gids)
+                if meta.chunk_ids[int(g)] != pm.chunk_ids[int(g)]
+            ]
+            # a live part's grid is built fresh (uncached); an owned one is
+            # the base itself and is cloned before the in-place scatter
+            bgrid = part.grid if part.owns_grid else part.grid_fn()
+            if dirty:
+                bgrid = bgrid.clone()
+                self._apply_rows(bgrid, dirty)
+            out_parts.append((part, bgrid))
+            block_by_off[part.offsets] = sd.device_grid_to_block(
+                bgrid, part.counts, plan.tile, meta.dtype
+            )
+        sharding = base.sharding
+        view = sd.view_from_part_grids(plan, out_parts, sharding)
+        if sharding is None:
+            (block,) = block_by_off.values()
+            return block, view
+        tile = plan.tile
+        moved: Dict[Tuple, torch.Tensor] = {}
+        blocks = []
+        for rank, index in sharding.addressable_devices_indices_map(tuple(meta.shape)).items():
+            dev = sharding.mesh.device_of(rank)
+            offs = tuple(sl.start // t for sl, t in zip(index, tile))
+            block = block_by_off[offs]
+            if block.device != dev:
+                block = moved.setdefault((offs, dev), block.to(dev))
+            blocks.append(block)
+        return sd.assemble_from_parts(view, blocks), view
 
     @staticmethod
     def _rows_match(meta: TensorMeta, row_bytes: int) -> bool:

@@ -653,6 +653,7 @@ class DumpImage:
     encode_ms: float = 0.0   # diff dispatch / host compare stage
     drain_ms: float = 0.0    # device→host fetch + copy + hash stage (pool)
     commit_ms: float = 0.0   # store folds + metadata stage (caller)
+    shard_parts: int = 0     # per-part tasks run (0 = no sharded tensors)
 
 
 class DeltaCRStats:
@@ -672,6 +673,9 @@ class DeltaCRStats:
         self.streamed_dumps = 0       # dumps that went through the stream engine
         self.stream_windows = 0       # total windows streamed
         self.cancelled_dumps = 0      # dumps rolled back mid-stream
+        # shard-native accounting (gather-free dumps of mesh-sharded state)
+        self.sharded_dumps = 0        # dumps containing >=1 sharded tensor
+        self.shard_parts = 0          # per-part encode/drain tasks run
         # fault-domain accounting (self-healing dump path)
         self.dump_retries = 0         # encode attempts retried after rollback
         self.dump_failures = 0        # dumps that failed loudly (ticket aborted)
@@ -1046,6 +1050,7 @@ class DeltaCR:
             encode_ms=res.encode_ms if res is not None else 0.0,
             drain_ms=res.drain_ms if res is not None else 0.0,
             commit_ms=res.commit_ms if res is not None else 0.0,
+            shard_parts=res.shard_parts if res is not None else 0,
         )
         # Ownership transfers to the ImageStore.  When the checkpoint was
         # dropped mid-dump, commit() resolves it transactionally: the image
@@ -1079,6 +1084,9 @@ class DeltaCR:
             if image.streamed:
                 self.stats.streamed_dumps += 1
                 self.stats.stream_windows += image.stream_windows
+            if image.shard_parts:
+                self.stats.sharded_dumps += 1
+                self.stats.shard_parts += image.shard_parts
         return image
 
     # ---------------------------------------------------- self-healing encode
@@ -1580,7 +1588,13 @@ class DeltaCR:
                 view = rec.views.get(name)
                 if view is None or idx >= view.n_chunks:
                     continue
-                row = host_bytes(view.grid[idx]).tobytes()
+                row_fn = getattr(view, "row_bytes", None)
+                if row_fn is not None:   # sharded view: single-row part fetch
+                    row = row_fn(idx)
+                    if row is None:
+                        continue
+                else:
+                    row = host_bytes(view.grid[idx]).tobytes()
             except Exception:
                 continue        # anchor unreadable: try the next location
             finally:
@@ -1610,7 +1624,16 @@ class DeltaCR:
                     else None
                 ),
                 "dirty_pred_samples": self.stats.pred_err_n,
+                # shard-native dump observability
+                "sharded_dumps": self.stats.sharded_dumps,
+                "shard_parts": self.stats.shard_parts,
             }
+        if self.stats.sharded_dumps:
+            # per-rank fetch accounting (process-wide; reported once this
+            # engine has run a sharded dump)
+            from ..dist import shard_dump as _sd
+
+            h["shards"] = _sd.fetch_stats()
         h["selector"] = self.selector.snapshot()
         if self.pipeline is not None:
             h["fused_checksum_mismatches"] = self.pipeline.fused_checksum_mismatches

@@ -143,9 +143,9 @@ class TensorMeta:
     # fallback).
     digests: Tuple[bytes, ...] = ()
     trailing_pad: int = 0
-    # Non-empty for the JAX package's shard-native dumps: per-dim tile
-    # counts of its TilePlan.  The port has no sharded dump path yet and
-    # only carries the field, so a persisted root round-trips unchanged.
+    # Non-empty for shard-native dumps: per-dim tile counts of the
+    # canonical TilePlan (dist.shard_dump) whose row-major tile ids are
+    # this meta's chunk order; () for the flat row-major byte split.
     tile_grid: Tuple[int, ...] = ()
 
     @property

@@ -110,6 +110,7 @@ class StreamStats:
     wall_ms: float = 0.0
     demoted_windows: int = 0
     window_bytes: int = 0            # the budget this dump's windows used
+    shard_items: int = 0             # per-shard part items (sharded dumps)
 
     @property
     def stage_sum_ms(self) -> float:
@@ -356,6 +357,7 @@ class ChunkStreamEngine:
             windows=len(windows),
             items=len(items),
             window_bytes=budget,
+            shard_items=sum(1 for it in items if "#shard" in it.key),
         )
         gate = self.gate
         # never dispatch more windows than the gate can admit, or the commit

@@ -13,8 +13,12 @@ packages compare like with like:
 Norms, RoPE and M-RoPE, GQA attention projections, chunked causal
 attention (optionally sliding-window), the GLU MLP, the capacity-bounded
 top-k MoE, mamba's selective SSM and the xLSTM blocks (mLSTM, sLSTM).
-There is one device, so the reference's sharding constraints and its
-expert-parallel ``shard_map`` MoE have no counterpart.  One deliberate
+The model computes on one device: the reference's activation constraints
+(``constrain``/``activation_sharding`` of its ``dist/sharding.py``) and
+its expert-parallel ``shard_map`` MoE are not ported yet: sharded compute
+needs real ranks, one process each.  The port's ``dist`` package
+holds the parameter and cache sharding rules and the shard-native dumps,
+over logical meshes.  One deliberate
 difference, exact up to float rounding: mamba's chunk recurrence is a
 doubling scan (``_linear_scan``) where the reference calls
 ``lax.associative_scan``.

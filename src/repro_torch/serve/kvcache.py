@@ -25,7 +25,17 @@ built page grid because a checkpoint's template keeps its pages
 referenced, and every write lands on a page whose refcount is 1.
 
 ``device=None`` means the card; pass ``device="cpu"`` to run on the CPU.
-The sharded pools of the JAX package wait for the port's ``dist`` slice.
+
+A pool may carry a ``sharding`` (a ``dist.placement.NamedSharding`` over the
+pool axes ``(periods, P, psz, KVH, Hd)``, e.g. the KV heads over "model").
+The pool tensors stay whole on the pool's device, so the engine and
+``paged_attention`` read them unchanged; what the sharding changes is the
+dump: a session's gathered page grids are placed on :meth:`PagePool.
+grid_sharding` and exposed as ``ShardedView``s under the canonical tile
+plan, so each rank's block is diffed and drained on its own and the image
+is tiled — its chunk ids and digests equal any other layout's.  That dump is
+O(delta) only against a parent at the same page count: the plan follows the
+grid's shape, and a new page changes it.
 """
 from __future__ import annotations
 
@@ -42,6 +52,8 @@ from ..core.convert import tensor_from_numpy
 from ..core.delta_pipeline import ChunkedView, DeltaGeneration
 from ..core.deltacr import resolve_device
 from ..core.deltafs import dtype_str
+from ..dist import shard_dump as _sd
+from ..dist.placement import NamedSharding, PartitionSpec, ShardedTensor, device_put
 from ..kernels import ops as kops
 from ..models.model import RECURRENT_KINDS
 
@@ -99,7 +111,10 @@ def _as_pool_tensor(value: Any, pool: torch.Tensor) -> torch.Tensor:
 
     bfloat16 that arrives as 16-bit words (numpy holds no bfloat16) is
     reinterpreted bit for bit, never converted; any other dtype is cast as
-    the JAX package's ``astype`` would."""
+    the JAX package's ``astype`` would.  A sharded value (a tiled image
+    decoded per part) is assembled from its blocks on the pool's device."""
+    if isinstance(value, ShardedTensor):
+        value = value.full(pool.device)
     t = value if isinstance(value, torch.Tensor) else tensor_from_numpy(np.asarray(value))
     if t.dtype != pool.dtype:
         if pool.dtype == torch.bfloat16 and t.dtype in (torch.int16, torch.uint16):
@@ -122,9 +137,16 @@ class PagePool:
         dtype: Optional[str] = None,
         verify_cow: bool = False,
         device: Any = None,
+        sharding: Optional[NamedSharding] = None,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
+        # placement of the pool axes (periods, P, psz, KVH, Hd) over a mesh,
+        # read by the dump; the page axis (1) must stay unsharded, since
+        # page gathers index it with host-chosen page lists
+        if sharding is not None and len(sharding.spec) > 1 and sharding.spec[1] is not None:
+            raise ValueError(f"the page axis must stay unsharded, got {sharding.spec}")
+        self.sharding = sharding
         self.page_size = page_size
         self.num_pages = num_pages
         self.max_pages = max_pages_per_session
@@ -188,6 +210,21 @@ class PagePool:
     def bytes_per_page(self) -> int:
         """Physical bytes one page occupies across every layer's K+V pools."""
         return self._bytes_per_page
+
+    def multi_device(self) -> bool:
+        """True when the pools are laid over more than one rank (ranks of a
+        logical mesh may share one card)."""
+        return self.sharding is not None and self.sharding.mesh.size > 1
+
+    def grid_sharding(self) -> Optional[NamedSharding]:
+        """Placement of gathered page grids ``(n_pages, periods, psz, KVH,
+        Hd)``, derived from the pool sharding ``(periods, P, psz, KVH, Hd)``:
+        the page axis becomes the (unsharded) leading axis and the other
+        axes keep their pool placement.  None for an unsharded pool."""
+        if self.sharding is None:
+            return None
+        s = list(self.sharding.spec) + [None] * max(0, 5 - len(self.sharding.spec))
+        return NamedSharding(self.sharding.mesh, PartitionSpec(None, s[0], s[2], s[3], s[4]))
 
     # --------------------------------------------------------- page algebra
     def alloc(self) -> int:
@@ -664,7 +701,17 @@ class PagedSession:
         axis first, flattened to ``(n_pages, row_bytes)`` and viewed as
         uint8.  The pages it reads stay unchanged until then because the
         dump's fork holds them, and every write lands on a page whose
-        refcount is 1."""
+        refcount is 1.
+
+        On a pool laid over several ranks the gathered page grids are
+        instead placed on :meth:`PagePool.grid_sharding` and exposed as
+        ``ShardedView``s under the canonical tile plan (``chunk_bytes`` sets
+        the tile target), so the pipeline diffs and drains each rank's block
+        on its own.  Only per-rank dirty tiles cross device→host between
+        checkpoints at the same page count: the plan follows the grid's
+        shape, so a checkpoint taken after the session gained a page has a
+        plan other than its parent's, and every part drains whole (O(state)
+        for that checkpoint)."""
         extras: Dict[str, Any] = {
             "meta/seq_len": np.asarray([self.seq_len], np.int64),
             "meta/tokens": np.asarray(self.tokens, np.int64),
@@ -676,11 +723,21 @@ class PagedSession:
         if n_pages:
             pages = np.asarray(self.active_pages(), np.int64).copy()
             pool = self.pool
+            grid_shard = pool.grid_sharding() if pool.multi_device() else None
             for skey, tag in pool.attn_tags:
                 proto = pool.pools_k[skey][tag]
                 periods, _, psz, kvh, hd = proto.shape
                 row_bytes = periods * psz * kvh * hd * proto.element_size()
                 for kv in ("k", "v"):
+                    if grid_shard is not None:
+                        pools = pool.pools_k if kv == "k" else pool.pools_v
+                        idx = torch.as_tensor(pages, device=pool.device)
+                        grid = device_put(_gather_rows(pools[skey][tag], idx), grid_shard)
+                        plan = _sd.TilePlan.for_array(
+                            grid.shape, proto.dtype, max(int(chunk_bytes), 1)
+                        )
+                        views[f"kv/{skey}/{tag}/{kv}"] = _sd.sharded_view(grid, plan)
+                        continue
 
                     def build(p=pool, s=skey, t=tag, which=kv, idx=pages, n=n_pages):
                         pools = p.pools_k if which == "k" else p.pools_v

@@ -41,7 +41,8 @@ def test_port_sources_are_covered():
         "delta_fused.py", "delta_diff.py", "delta_apply.py", "deltacr.py", "chip_smoke.py",
         "page_copy.py", "paged_attention.py", "kvcache.py", "engine.py", "model.py", "layers.py",
         "sandbox_tree.py", "gc.py", "scheduler.py", "mcts.py", "fanout.py", "archetypes.py",
-        "decode_task.py", "persist.py",
+        "decode_task.py", "persist.py", "placement.py", "sharding.py", "shard_dump.py",
+        "mesh.py",
     } <= names
 
 
@@ -50,6 +51,7 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import sys; import repro_torch, repro_torch.core, repro_torch.kernels;"
         "import repro_torch.core.convert, repro_torch.configs, repro_torch.models;"
         "import repro_torch.serve, repro_torch.search;"
+        "import repro_torch.dist, repro_torch.dist.sharding, repro_torch.launch.mesh;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes')];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
