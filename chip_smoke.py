@@ -126,10 +126,25 @@ Phases:
    (tiled KV entries, no gather), four fast forks at B = 4 (no page
    copied), and a slow restore (one ``delta_apply`` per part with dirty
    tiles) that must decode exactly what a fast fork decodes;
+12. sharded compute — on 9a's model, right after 9a: (12a) one MoE layer
+   (D 2048, 128 experts, top-8, F 768, bf16) on a (4, 256) input,
+   expert-parallel over logical meshes (1, 4), (2, 4) with and without
+   sequence parallelism, (4, 2) and (1, 8) with it: every rank's capacity
+   slots and drops equal ``moe_apply`` on its shard's tokens as one group,
+   the output within 2e-2 of that plain version's largest magnitude,
+   ``aux`` within 1e-5 of the shards' mean, and each rank's collective
+   bytes equal to the formula; (12b) 9a's serving run again with every
+   call under ``activation_sharding`` over a (1, 4) mesh (32 experts a
+   rank): 9a's gates, the all_to_all bytes of every rank equal to the
+   formula over the run, the prefill logits within 2e-2 of 9a's, the peak
+   at most 9a's plus 2 GiB, ``paged_attention`` once per layer a step; then
+   the model is freed and (12c) ``repro_torch.launch.serve.main`` serves
+   two sessions of 16 tokens at full olmo-1b width in this process;
 5. report — one JSON line per kernel, the ``{"kernels": [...]}`` line, the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
-Phases run in the order 1, 2, 3, 3b, 4, 6, 7, 8, 11, 4b, 9, 10, 10b, 5.
+Phases run in the order 1, 2, 3, 3b, 4, 6, 7, 8, 11, 4b, 9a, 12, 9b, 9c, 9d,
+10, 10b, 5.
 
 Any failure exits non-zero before the last line is printed.  The script
 imports nothing of JAX or of the JAX package.
@@ -3085,10 +3100,25 @@ def _state_snapshot(sess, keys) -> dict:
     return {(k, leaf): t.clone() for k in keys for leaf, t in sess.extras[k].items()}
 
 
+def build_family_model(device, config: str, periods=None, embed_std=None, seed: int = 0):
+    """``config`` (cut by ``family_config``) with seeded random weights on
+    ``device``, the embedding table rescaled to ``embed_std`` when given."""
+    import torch
+
+    from repro_torch.models import Model
+
+    model = Model(family_config(config, periods), device=device)
+    model.init(torch.Generator(device=device).manual_seed(seed))
+    if embed_std is not None:
+        model.params["embed"].mul_(embed_std * model.cfg.d_model ** 0.5)
+    return model
+
+
 def run_family_path(
     device,
     *,
     config: str,
+    model=None,
     periods=None,
     num_pages: int = SERVE_PAGES,
     page_size: int = SERVE_PAGE_SIZE,
@@ -3101,8 +3131,9 @@ def run_family_path(
     embed_std=None,
     seed: int = 0,
 ) -> dict:
-    """Phases 9a-9c: ``config`` (cut by ``family_config``) with seeded
-    random weights (the embedding table rescaled to ``embed_std`` when it is
+    """Phases 9a-9c (and 12b under an activation-sharding context):
+    ``model``, or ``config`` built by ``build_family_model`` (seeded random
+    weights, the embedding table rescaled to ``embed_std`` when it is
     given), served through ``Engine`` under
     ``StateManager(Sandbox(DeltaFS, trunk), DeltaCR)``: phase 6's prompt
     (taken modulo a smaller vocabulary) prefilled, ``steps`` greedy steps
@@ -3116,13 +3147,13 @@ def run_family_path(
     fork's tokens and logits; the forks decode pairwise different streams.
     An MoE config's routing at prefill and over the forks' steps is held
     against the host's capacity rule (``check_capacity_rule``), and one
-    batched step is profiled on the card.  Returns the metrics."""
+    batched step is profiled on the card.  Returns the metrics, with the
+    trunk's greedy tokens and (not JSON) its prefill logits."""
     import numpy as np
     import torch
 
     from repro_torch.core import DeltaCR, DeltaFS, DumpPolicy, Sandbox, StateManager
     from repro_torch.kernels import launch_counts
-    from repro_torch.models import Model
     from repro_torch.serve import Engine, PagePool, PagedSession
 
     on_card = torch.device(device).type == "cuda"
@@ -3131,11 +3162,9 @@ def run_family_path(
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = Model(family_config(config, periods), device=device)
-    model.init(torch.Generator(device=device).manual_seed(seed))
+    if model is None:
+        model = build_family_model(device, config, periods, embed_std, seed)
     cfg = model.cfg
-    if embed_std is not None:
-        model.params["embed"].mul_(embed_std * cfg.d_model ** 0.5)
     pool = PagePool(cfg, num_pages=num_pages, page_size=page_size,
                     max_pages_per_session=max_pages, device=device)
     eng = Engine(model, pool)
@@ -3172,6 +3201,7 @@ def run_family_path(
         trunk = eng.new_session(prompt)
     sync()
     prefill_ms = (time.perf_counter() - t) * 1e3
+    prefill_logits = np.array(trunk.extras["last_logits"])
     b1_ms, _ = steps_([trunk], steps // 2)
     fs = DeltaFS()
     cr = DeltaCR(
@@ -3184,6 +3214,7 @@ def run_family_path(
     cr.wait_dumps()
     ms, _ = steps_([trunk], steps - steps // 2)
     b1_ms += ms
+    trunk_tokens = [int(t) for t in trunk.tokens[prompt_len:]]
     state_bytes = sum(t.nbytes for k in state_keys for t in trunk.extras[k].values())
     d2h0 = cr.pipeline.d2h_bytes
     sync()
@@ -3302,6 +3333,8 @@ def run_family_path(
         "fork_device_bytes_allocated": fork_alloc,
         "slow_restore_ms": slow_ms,
         "max_memory_allocated": peak,
+        "trunk_tokens": trunk_tokens,
+        "prefill_logits": prefill_logits,
         **moe,
     }
     for sess in kids + [fast, slow, sm.sandbox.proc]:
@@ -3401,6 +3434,229 @@ def run_sublayer_checks(device) -> list:
         if torch.device(device).type == "cuda":
             torch.cuda.empty_cache()
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 12: sharded compute on the card, on 9a's qwen3-moe-30b-a3b
+# ---------------------------------------------------------------------------
+# 12a: ("data", "model") layouts and sequence parallelism of one MoE layer
+EP_LAYOUTS = (((1, 4), False), ((2, 4), False), ((2, 4), True), ((4, 2), True),
+              ((1, 8), True))
+EP_INPUT = (4, 256)             # (B, S) of 12a's bf16 layer input
+EP_TOL = 2e-2                   # of the largest magnitude: EP against moe_apply per shard
+EP_AUX_TOL = 1e-5
+EP_SERVE_MESH = (1, 4)          # 12b: 32 experts on each "model" rank
+EP_MEMORY_SLACK = 2 << 30       # 12b: peak at most the unsharded run's plus 2 GiB
+LAUNCHER_ARGV = ("--arch", "olmo-1b", "--tokens", "16", "--sessions", "2")   # 12c
+
+
+def _moe_layer(model):
+    """(spec, weights) of the first MoE sublayer of ``model``'s first
+    period: views of the stacked weights, no copy."""
+    from repro_torch.models.model import _moe_spec
+
+    for li, layer in enumerate(model.cfg.stages[0].period):
+        for si, kind in enumerate(layer):
+            if kind == "moe":
+                body = model.params["stage0"][f"l{li}_s{si}_moe"]["body"]
+                return _moe_spec(model.cfg), {k: v[0] for k, v in body.items()}
+    raise ValueError(f"{model.cfg.name} has no MoE sublayer")
+
+
+def _a2a_bytes(spec, ep: int, C: int, itemsize: int) -> int:
+    """Bytes one rank receives over both all_to_alls of one MoE layer:
+    (ep - 1)/ep of its (E, C, D) buffer each way."""
+    return 2 * (ep - 1) * (spec.n_experts // ep) * C * spec.d_model * itemsize
+
+
+def run_ep_layer(device, model, *, layouts=EP_LAYOUTS, shape=EP_INPUT, seed: int = 0) -> list:
+    """12a: one MoE layer of ``model`` (period 0's weights) on a seeded
+    input of ``shape`` tokens, expert-parallel over each layout's logical
+    mesh (``dp=("data",)``), against its plain version: ``moe_apply`` run
+    on each shard's tokens as one group.  Gates: every rank's capacity
+    slots and drops equal its shard's, the output within ``EP_TOL`` of the
+    plain output's largest magnitude, ``aux`` within ``EP_AUX_TOL`` of the
+    mean of the ranks' shard aux, and each rank's collective bytes equal to
+    the formula (``_a2a_bytes``, and for the FSDP gather ``n_data - 1``
+    times its three expert-weight blocks and its router block).  Returns a
+    row per layout."""
+    import torch
+
+    from repro_torch.dist import collectives as col
+    from repro_torch.dist.placement import NamedSharding, PartitionSpec as P
+    from repro_torch.dist.sharding import activation_sharding
+    from repro_torch.launch.mesh import make_logical_mesh
+    from repro_torch.models import layers as L
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    spec, params = _moe_layer(model)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(*shape, spec.d_model, generator=gen, device=device).to(model.dtype)
+
+    def timed(fn):
+        fn()                                     # warm
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t) * 1e3
+
+    _, unsharded_ms = timed(lambda: L.moe_apply(params, spec, x))
+    rows = []
+    for mesh_shape, sp in layouts:
+        mesh = make_logical_mesh(mesh_shape, device=device)
+        ep, n_data = mesh.shape["model"], mesh.shape["data"]
+        routes: list = []
+        with activation_sharding(dp=("data",), mesh=mesh, seq_parallel=sp):
+            _, ep_ms = timed(lambda: L.moe_apply(params, spec, x))
+            col.reset_ledger()
+            with recording_moe_routes(routes):
+                out, aux = L.moe_apply(params, spec, x)
+        led = col.ledger()["received"]
+        if len(routes) != mesh.size:
+            raise AssertionError(f"{mesh_shape}: {len(routes)} routing calls for "
+                                 f"{mesh.size} ranks")
+        imap = NamedSharding(mesh, P("data", "model" if sp else None, None)) \
+            .addressable_devices_indices_map(x.shape)
+        want = torch.empty_like(out)
+        shards: dict = {}
+        shard_aux, dropped = [], 0
+        for rank, index in imap.items():
+            key = tuple((s.start, s.stop) for s in index)
+            if key not in shards:
+                xl = x[index]
+                Bl, Sl, D = xl.shape
+                sink: list = []
+                with recording_moe_routes(sink):
+                    y, a = L.moe_apply(params, spec, xl.reshape(1, Bl * Sl, D))
+                want[index] = y.reshape(Bl, Sl, D)
+                shards[key] = (sink[0], float(a))
+            (le, lp, lk, lC), a = shards[key]
+            ge, gp, gk, gC = routes[rank]
+            if gC != lC or not (torch.equal(ge, le) and torch.equal(gp, lp) and torch.equal(gk, lk)):
+                raise AssertionError(f"{mesh_shape} sp={sp}: rank {rank}'s slots or drops "
+                                     "differ from its shard's")
+            shard_aux.append(a)
+            dropped += int((~gk).sum())
+            gather = (n_data - 1) * (
+                sum(params[k].nbytes // (ep * n_data) for k in ("w_gate", "w_up", "w_down"))
+                + params["router"].nbytes // n_data)
+            got = (led.get("all_to_all", {}).get(rank, 0), led.get("all_gather", {}).get(rank, 0))
+            if got != (_a2a_bytes(spec, ep, gC, x.element_size()), gather):
+                raise AssertionError(f"{mesh_shape} sp={sp}: rank {rank} received {got} B, "
+                                     f"expected {(_a2a_bytes(spec, ep, gC, x.element_size()), gather)}")
+        err = float((out.float() - want.float()).abs().max() / want.float().abs().max())
+        if not err <= EP_TOL:
+            raise AssertionError(f"{mesh_shape} sp={sp}: {err} of the largest magnitude")
+        aux_err = abs(float(aux) - statistics.fmean(shard_aux))
+        if not aux_err <= EP_AUX_TOL:
+            raise AssertionError(f"{mesh_shape} sp={sp}: aux off by {aux_err}")
+        rows.append({
+            "mesh": list(mesh_shape), "seq_parallel": sp, "capacity": routes[0][3],
+            "drop_share": dropped / sum(r[2].numel() for r in routes),
+            "max_rel_err": err, "aux": float(aux), "aux_err": aux_err,
+            "a2a_bytes_per_rank": led.get("all_to_all", {}).get(0, 0),
+            "gather_bytes_per_rank": led.get("all_gather", {}).get(0, 0),
+            "ep_ms": ep_ms, "unsharded_ms": unsharded_ms,
+        })
+        del out, want, routes, shards
+    return rows
+
+
+def run_ep_serving_path(device, model, unsharded: dict, *, mesh_shape=EP_SERVE_MESH,
+                        **kw) -> dict:
+    """12b: 9a's serving run again (``run_family_path`` on the same model,
+    with ``kw``), every call under ``activation_sharding`` over a logical
+    mesh of ``mesh_shape`` (experts over "model", KV heads over "model"
+    through the attention constraints, ``attn_shard`` "kv"), against
+    ``unsharded`` (9a's result).  Gates, beyond 9a's own: every rank's
+    all_to_all bytes equal the formula over the run's MoE calls (two
+    prefills of the prompt and the decode steps, each at its capacity), the
+    prefill logits within ``EP_TOL`` of the unsharded run's largest
+    magnitude, and (on the card) the peak at most the unsharded run's plus
+    ``EP_MEMORY_SLACK``.  Returns the metrics."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dist import collectives as col
+    from repro_torch.dist.sharding import activation_sharding
+    from repro_torch.launch.mesh import make_logical_mesh
+    from repro_torch.models.model import _moe_spec
+
+    cfg = model.cfg
+    spec = _moe_spec(cfg)
+    mesh = make_logical_mesh(mesh_shape, device=device)
+    ep = mesh.shape["model"]
+    col.reset_ledger()
+    with activation_sharding(dp=("data",), model="model", attn_shard=cfg.attn_shard, mesh=mesh):
+        out = run_family_path(device, config=cfg.name, model=model, **kw)
+    led = col.ledger()
+    moe_layers = sum(layer.count("moe") * st.n_periods for st in cfg.stages for layer in st.period)
+    forks = kw.get("forks", FAMILY_FORKS)
+    if spec.capacity(1) != spec.capacity(forks):
+        raise AssertionError("decode steps of 1 and of the forks differ in capacity")
+    itemsize = model.dtype.itemsize             # the dispatched slots hold activations
+    prompt_len = kw.get("prompt_len", SERVE_PROMPT)
+    want = moe_layers * (2 * _a2a_bytes(spec, ep, spec.capacity(prompt_len), itemsize)
+                         + out["decode_steps"] * _a2a_bytes(spec, ep, spec.capacity(1), itemsize))
+    got = led["received"].get("all_to_all", {})
+    if any(got.get(r, 0) != want for r in range(mesh.size)):
+        raise AssertionError(f"all_to_all bytes by rank {got}, expected {want} each")
+    a, b = out.pop("prefill_logits"), unsharded["prefill_logits"]
+    logits_err = float(np.abs(a - b).max() / np.abs(b).max())
+    if not logits_err <= EP_TOL:
+        raise AssertionError(f"prefill logits {logits_err} of the unsharded run's largest")
+    peak, base = out["max_memory_allocated"], unsharded["max_memory_allocated"]
+    if peak is not None and peak > base + EP_MEMORY_SLACK:
+        raise AssertionError(f"peak {peak} B over the unsharded run's {base} B + 2 GiB")
+    streams = [(x, y) for sa, sb in zip(out["fork_streams"], unsharded["fork_streams"])
+               for x, y in zip(sa, sb)]
+    return {
+        **out,
+        "mesh": list(mesh_shape),
+        "prefill_logits_rel_err": logits_err,
+        "trunk_tokens_equal": sum(x == y for x, y in zip(out["trunk_tokens"],
+                                                          unsharded["trunk_tokens"])),
+        "fork_tokens_equal": sum(x == y for x, y in streams),
+        "tokens_compared": len(out["trunk_tokens"]) + len(streams),
+        "a2a_bytes_per_rank": want,
+        "a2a_bytes_per_decode_step": moe_layers * _a2a_bytes(spec, ep, spec.capacity(1), itemsize),
+        "a2a_bytes_per_prefill": moe_layers * _a2a_bytes(spec, ep, spec.capacity(prompt_len),
+                                                         itemsize),
+        "collective_calls": led["calls"],
+        "unsharded_decode_ms_b1_median": unsharded["decode_ms_b1_median"],
+        "unsharded_decode_ms_b4_median": unsharded["decode_ms_b4_median"],
+        "unsharded_prefill_ms": unsharded["prefill_ms"],
+        "unsharded_max_memory_allocated": base,
+    }
+
+
+def run_serve_launcher(argv=LAUNCHER_ARGV) -> dict:
+    """12c: ``repro_torch.launch.serve.main(argv)`` in this process; it
+    must return 0 and print one line per session holding the prompt and
+    ``--tokens`` generated tokens."""
+    import io
+
+    from repro_torch.launch import serve
+
+    args = dict(zip(argv[::2], argv[1::2]))
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(list(argv))
+    seconds = time.perf_counter() - t
+    if rc != 0:
+        raise AssertionError(f"the launcher returned {rc}")
+    lines = buf.getvalue().strip().splitlines()
+    n, tokens = int(args.get("--sessions", 2)), int(args.get("--tokens", 16))
+    if [ln.split(":")[0] for ln in lines] != [f"session {i}" for i in range(n)]:
+        raise AssertionError(f"printed {lines}")
+    streams = [json.loads(ln.split(": ", 1)[1]) for ln in lines]
+    if any(len(st) != 4 + tokens for st in streams):      # the launcher's 4-token prompt
+        raise AssertionError(f"sessions of {[len(st) for st in streams]} tokens")
+    return {"argv": list(argv), "rc": rc, "sessions": streams, "steps": tokens - 1,
+            "seconds": seconds}
 
 
 # ---------------------------------------------------------------------------
@@ -3749,6 +4005,72 @@ def checkpoint_profile(device) -> dict:
             "d2h_bytes_per_checkpoint_median": metrics["d2h_bytes_per_checkpoint_median"]}
 
 
+def ep_compute_phase(device, model, unsharded: dict, launches: dict, card: str) -> None:
+    """Phases 12a and 12b on ``model``, whose 9a run is ``unsharded``: their
+    lines printed, their launches added to ``launches``; a failed gate
+    fails the script."""
+    import torch
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    try:
+        rows = run_ep_layer(device, model)
+    except AssertionError as exc:
+        fail(f"phase 12a: {exc}")
+    for row in rows:
+        say(f"[12a EP layer] {json.dumps(row)} (card: {card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    try:
+        ep = run_ep_serving_path(device, model, unsharded)
+    except AssertionError as exc:
+        fail(f"phase 12b: {exc}")
+    ep_launches = launch_counts()
+    say(f"[12b EP serving] launches {json.dumps(ep_launches)}")
+    want_pa = ep["global_attn_layers"] * ep["decode_steps"]
+    if ep_launches["paged_attention"] != want_pa:
+        fail(f"phase 12b: paged_attention launched {ep_launches['paged_attention']} times, "
+             f"expected {want_pa}")
+    for k in ("page_copy_stacked", "delta_apply"):
+        if ep_launches[k] <= 0:
+            fail(f"kernel {k} was not launched on phase 12b's path")
+    if ep_launches["delta_diff"] + ep_launches["delta_fused"] <= 0:
+        fail("no delta kernel was launched on phase 12b's path")
+    say(f"[12b EP serving] {json.dumps(ep)} (card: {card})")
+    say(f"[12b EP serving] step {ep['decode_ms_b1_median']:.1f} / {ep['decode_ms_b4_median']:.1f} "
+        f"ms at B = 1 / 4 against {ep['unsharded_decode_ms_b1_median']:.1f} / "
+        f"{ep['unsharded_decode_ms_b4_median']:.1f} unsharded; prefill {ep['prefill_ms']:.1f} "
+        f"against {ep['unsharded_prefill_ms']:.1f} ms; {ep['a2a_bytes_per_decode_step']} B "
+        f"all_to_all per rank a decode step; tokens equal {ep['trunk_tokens_equal']} + "
+        f"{ep['fork_tokens_equal']} of {ep['tokens_compared']}; peak "
+        f"{ep['max_memory_allocated']} B against {ep['unsharded_max_memory_allocated']} B "
+        f"(card: {card})")
+    for k, n in ep_launches.items():
+        launches[k] += n
+
+
+def launcher_phase(launches: dict, card: str) -> None:
+    """Phase 12c, the serving launcher in this process: its lines printed,
+    its launches added to ``launches``; a failed gate fails the script."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    try:
+        served = run_serve_launcher()
+    except AssertionError as exc:
+        fail(f"phase 12c: {exc}")
+    serve_launches = launch_counts()
+    say(f"[12c launcher] launches {json.dumps(serve_launches)}")
+    want_pa = 16 * served["steps"]              # olmo-1b: 16 global attention layers
+    if serve_launches["paged_attention"] != want_pa:
+        fail(f"phase 12c: paged_attention launched {serve_launches['paged_attention']} times, "
+             f"expected {want_pa}")
+    say(f"[12c launcher] {json.dumps(served)} (card: {card})")
+    for k, n in serve_launches.items():
+        launches[k] += n
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -3956,12 +4278,17 @@ def main() -> int:
         f"{torch.cuda.memory_allocated()} B")
     for part, config, periods, embed_std in FAMILY_PARTS:
         t = time.perf_counter()
+        fam_model = build_family_model(device, config, periods, embed_std)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
         reset_launch_counts()
         try:
-            fam = run_family_path(device, config=config, periods=periods, embed_std=embed_std)
+            fam = run_family_path(device, config=config, model=fam_model)
         except AssertionError as exc:
             fail(f"phase {part}: {exc}")
         fam_launches = launch_counts()
+        prefill_logits = fam.pop("prefill_logits")
+        fam["build_s"] = build_s
         tag = f"[{part} {fam['config']}]"
         say(f"{tag} launches {json.dumps(fam_launches)}")
         want_pa = fam["global_attn_layers"] * fam["decode_steps"]
@@ -3977,9 +4304,19 @@ def main() -> int:
         say(f"{tag} {json.dumps(fam)} ({time.perf_counter() - t:.1f} s; card: {card})")
         for k, n in fam_launches.items():
             launches[k] += n
-        del fam
+        if part == "9a":
+            # -- phase 12: sharded compute on 9a's model, then the launcher
+            #    (launch counts over each part)
+            t12 = time.perf_counter()
+            fam["prefill_logits"] = prefill_logits
+            ep_compute_phase(device, fam_model, fam, launches, card)
+        del fam, fam_model, prefill_logits
         gc.collect()
         torch.cuda.empty_cache()
+        if part == "9a":
+            launcher_phase(launches, card)
+            say(f"[12 sharded compute] phase 12 ran {time.perf_counter() - t12:.1f} s "
+                f"(card: {card})")
     t = time.perf_counter()
     reset_launch_counts()
     try:

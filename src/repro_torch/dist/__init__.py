@@ -1,7 +1,8 @@
 """Distribution: logical meshes and sharded tensors (``placement``), the
-sharding rules for parameters and caches (``sharding``), and the
+sharding rules for parameters, caches and activations (``sharding``),
+``shard_map``'s collectives over a logical mesh (``collectives``), and the
 shard-native, gather-free dump and restore plumbing (``shard_dump``)."""
-from . import placement, shard_dump, sharding
+from . import collectives, placement, shard_dump, sharding
 from .placement import Mesh, NamedSharding, PartitionSpec, ShardedTensor, device_put, from_blocks
 from .shard_dump import ShardedTensorState, TilePlan
 
@@ -12,6 +13,7 @@ __all__ = [
     "ShardedTensor",
     "ShardedTensorState",
     "TilePlan",
+    "collectives",
     "device_put",
     "from_blocks",
     "placement",

@@ -23,6 +23,10 @@ picture without one process per rank:
   the old tensor keeps its bytes.  Ranks of one device that hold the same
   index share one block tensor (replication costs no extra memory on a
   shared card).
+* :func:`with_sharding_constraint` is ``jax.lax.with_sharding_constraint``
+  for one process that computes the whole tensor: it checks the spec and
+  returns the tensor unchanged (the values are the unsharded ones, as
+  GSPMD's are).
 * :func:`device_put` places a tensor (or a numpy array, or another
   sharded tensor: a reshard, block by block, never through a gathered
   copy) onto a sharding; :func:`from_blocks` is
@@ -44,6 +48,7 @@ __all__ = [
     "ShardedTensor",
     "device_put",
     "from_blocks",
+    "with_sharding_constraint",
 ]
 
 Index = Tuple[slice, ...]
@@ -196,6 +201,26 @@ class NamedSharding:
 
     def __repr__(self) -> str:
         return f"NamedSharding({self.mesh!r}, {self.spec!r})"
+
+
+def with_sharding_constraint(x: torch.Tensor, sharding: Any) -> torch.Tensor:
+    """``x`` itself, after checking ``sharding`` (a :class:`NamedSharding`
+    or a bare :class:`PartitionSpec`) against it: at most ``x.ndim``
+    entries, each None, an axis name or a tuple of names, and every named
+    axis in the mesh when there is one.  A spec that fails raises."""
+    mesh = sharding.mesh if isinstance(sharding, NamedSharding) else None
+    spec = sharding.spec if mesh is not None else sharding
+    if not isinstance(spec, PartitionSpec):
+        raise TypeError(f"expected a NamedSharding or PartitionSpec, got {type(sharding).__name__}")
+    if len(spec) > x.dim():
+        raise ValueError(f"spec {spec} has more entries than the {x.dim()}-d tensor")
+    for entry in spec:
+        axes = _axes(entry)
+        if not all(isinstance(a, str) for a in axes):
+            raise ValueError(f"spec {spec}: entry {entry!r} is not an axis name")
+        if mesh is not None and any(a not in mesh.axis_names for a in axes):
+            raise ValueError(f"spec {spec} names an axis not in {mesh.axis_names}")
+    return x
 
 
 @dataclass(frozen=True)

@@ -1,36 +1,99 @@
-"""Sharding rules: parameter, cache and batch partitioning over a mesh.
+"""Sharding rules: logical activation axes + parameter/cache partitioning.
 
-One place owns the mapping from a model's leaves to mesh axes, so the
-sharded dump path (and later the sharded model) never hard-codes a
-layout:
+One place owns the mapping from *logical* axis names to mesh axes, so
+model code never hard-codes a mesh layout:
 
+* ``constrain(x, ("dp", "sp", None))`` — a logical sharding constraint.
+  Logical names resolve through the ambient :func:`activation_sharding`
+  context; with no context installed it returns ``x`` itself.  Under a
+  context it hands the resolved spec to
+  :func:`~repro_torch.dist.placement.with_sharding_constraint`, a checked
+  identity: one process computes the whole tensor, so the values are the
+  unsharded ones, as GSPMD's are;
 * ``param_specs(cfg, mesh)`` — FSDP×TP :class:`PartitionSpec` for every
   parameter leaf, shape-guarded by :func:`enforce_divisible`;
 * ``cache_specs(cfg, mesh)`` — decode caches are *sequence*-sharded over
   the "model" axis (long-context: over the data axes, B=1), per-name specs;
 * ``batch_spec`` / ``data_axes`` — data-parallel batch layout helpers.
 
-The rules are the JAX package's, leaf for leaf.  A mesh here is anything
-with ``axis_names`` and a ``shape`` dict (axis → size), so the specs of a
-production mesh come out without its cards.  The activation constraints
-of the sharded model (``constrain``, ``activation_sharding``) wait for
-real ranks.
+Logical axes understood by :func:`constrain`:
+
+=========  ==================================================================
+``dp``     data-parallel axes of the context (``()`` → unsharded)
+``sp``     sequence parallelism: "model" when the context enables it
+``seq``    the context's sequence axes (decode cache sharding)
+``model``  the tensor-parallel axis
+``kv``     "model" iff the architecture shards the KV-head axis
+``group``  "model" iff the architecture shards the query-group axis
+=========  ==================================================================
+
+The rules are the JAX package's, leaf for leaf and name for name.  A
+mesh here is anything with ``axis_names`` and a ``shape`` dict (axis →
+size), so the specs of a production mesh come out without its cards; a
+context's ``mesh`` is a :class:`~repro_torch.dist.placement.Mesh` (a
+logical mesh) or None.  The context also selects the expert-parallel MoE
+(``models/layers.py``), which is the one consumer that runs per-rank code.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Tuple
+import contextlib
+import threading
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
+from . import placement
+from .placement import NamedSharding
 from .placement import PartitionSpec as P
 
 __all__ = [
+    "activation_sharding",
     "batch_spec",
     "cache_specs",
+    "constrain",
+    "current_act_ctx",
     "data_axes",
     "enforce_divisible",
     "param_specs",
 ]
+
+_tls = threading.local()
+
+
+def current_act_ctx() -> Optional[Dict[str, Any]]:
+    """The innermost activation-sharding context, or None."""
+    stack = getattr(_tls, "stack", None)
+    return stack[-1] if stack else None
+
+
+@contextlib.contextmanager
+def activation_sharding(
+    *,
+    dp: Sequence[str] = (),
+    seq: Sequence[str] = (),
+    model: str = "model",
+    attn_shard: str = "kv",
+    seq_parallel: bool = False,
+    mesh: Optional[placement.Mesh] = None,
+):
+    """Install the logical→mesh axis mapping ``constrain`` resolves against
+    (per thread, innermost wins)."""
+    ctx = {
+        "dp": tuple(dp),
+        "seq": tuple(seq),
+        "model": model,
+        "attn_shard": attn_shard,
+        "seq_parallel": bool(seq_parallel),
+        "mesh": mesh,
+    }
+    stack = getattr(_tls, "stack", None)
+    if stack is None:
+        stack = _tls.stack = []
+    stack.append(ctx)
+    try:
+        yield ctx
+    finally:
+        stack.pop()
 
 
 def _norm(axes: Tuple[str, ...]):
@@ -40,6 +103,40 @@ def _norm(axes: Tuple[str, ...]):
     if len(axes) == 1:
         return axes[0]
     return tuple(axes)
+
+
+def _resolve(logical, ctx) -> Any:
+    if logical is None:
+        return None
+    if logical == "dp":
+        return _norm(ctx["dp"])
+    if logical == "seq":
+        return _norm(ctx["seq"])
+    if logical == "sp":
+        return ctx["model"] if ctx["seq_parallel"] else None
+    if logical == "model":
+        return ctx["model"]
+    if logical == "kv":
+        return ctx["model"] if ctx["attn_shard"] == "kv" else None
+    if logical == "group":
+        return ctx["model"] if ctx["attn_shard"] == "group" else None
+    return logical  # literal mesh axis name passes through
+
+
+def constrain(x, logical_axes: Sequence[Optional[str]]):
+    """A sharding constraint through logical axis names; ``x`` itself
+    without a context.  Under a context with a mesh the spec is first
+    guarded by :func:`enforce_divisible`."""
+    ctx = current_act_ctx()
+    if ctx is None:
+        return x
+    entries = tuple(_resolve(a, ctx) for a in logical_axes[: x.ndim])
+    spec = P(*entries)
+    mesh = ctx.get("mesh")
+    if mesh is not None:
+        spec = enforce_divisible(spec, x.shape, mesh)
+        return placement.with_sharding_constraint(x, NamedSharding(mesh, spec))
+    return placement.with_sharding_constraint(x, spec)
 
 
 def data_axes(mesh) -> Tuple[str, ...]:

@@ -13,15 +13,17 @@ packages compare like with like:
 Norms, RoPE and M-RoPE, GQA attention projections, chunked causal
 attention (optionally sliding-window), the GLU MLP, the capacity-bounded
 top-k MoE, mamba's selective SSM and the xLSTM blocks (mLSTM, sLSTM).
-The model computes on one device: the reference's activation constraints
-(``constrain``/``activation_sharding`` of its ``dist/sharding.py``) and
-its expert-parallel ``shard_map`` MoE are not ported yet: sharded compute
-needs real ranks, one process each.  The port's ``dist`` package
-holds the parameter and cache sharding rules and the shard-native dumps,
-over logical meshes.  One deliberate
-difference, exact up to float rounding: mamba's chunk recurrence is a
-doubling scan (``_linear_scan``) where the reference calls
-``lax.associative_scan``.
+
+Sharded compute follows the reference: every activation constraint of
+its layers is a ``constrain`` here at the same place with the same
+logical axes (a checked identity: one process computes the whole
+tensor, ``dist/sharding.py``), and under an activation-sharding context
+with a mesh ``moe_apply`` runs the expert-parallel MoE
+(``_moe_apply_shard_map``) over a logical mesh: the reference's
+``shard_map`` program run as bulk-synchronous stages, every rank in
+turn, meeting in ``dist/collectives.py``.  One deliberate difference,
+exact up to float rounding: mamba's chunk recurrence is a doubling scan
+(``_linear_scan``) where the reference calls ``lax.associative_scan``.
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+
+from ..dist.sharding import constrain, current_act_ctx
 
 Params = Dict[str, Any]
 
@@ -205,6 +209,10 @@ def attn_project_qkv(
     else:
         q = apply_rope(q, positions[:, :, None, None], theta=spec.rope_theta)
         k = apply_rope(k, positions[:, :, None], theta=spec.rope_theta)
+    if S > 1:  # full-sequence mode: pin batch/head sharding
+        q = constrain(q, ("dp", None, "kv", "group", None))
+        k = constrain(k, ("dp", None, "kv", None))
+        v = constrain(v, ("dp", None, "kv", None))
     return q, k, v
 
 
@@ -263,6 +271,7 @@ def chunked_causal_attention(
         q_pos = i * chunk + base
         for j in range(max(0, i - n_kv_steps + 1), i + 1):
             s = torch.einsum("bqkgh,bpkh->bkgqp", q_i, kc[:, j].float())
+            s = constrain(s, ("dp", "kv", "group", None, None))
             kv_pos = j * chunk + base
             mask = (q_pos[:, None] >= kv_pos[None, :]) & (kv_pos < S)[None, :]
             if window is not None:
@@ -273,11 +282,13 @@ def chunked_causal_attention(
             alpha = torch.exp(m - m_next)
             l = alpha * l + p.sum(dim=-1)
             acc = acc * alpha[..., None] + torch.einsum("bkgqp,bpkh->bkgqh", p, vc[:, j].float())
+            acc = constrain(acc, ("dp", "kv", "group", None, None))
             m = m_next
         l = torch.where(l == 0.0, torch.ones_like(l), l)
         outs.append(acc / l[..., None])                             # (B,KVH,G,c,Hd)
     out = torch.cat(outs, dim=3)[:, :, :, :S]                      # (B,KVH,G,S,Hd)
-    return out.permute(0, 3, 1, 2, 4).to(q.dtype)                  # (B,S,KVH,G,Hd)
+    out = out.permute(0, 3, 1, 2, 4).to(q.dtype)                   # (B,S,KVH,G,Hd)
+    return constrain(out, ("dp", None, "kv", "group", None))
 
 
 # --------------------------------------------------------------------------
@@ -302,7 +313,8 @@ def glu_mlp(params: Params, x: torch.Tensor, *, activation: str = "silu") -> tor
         act = torch.nn.functional.gelu(gate, approximate="tanh")
     else:
         raise ValueError(activation)
-    return (act * up) @ params["w_down"]
+    h = constrain(act * up, ("dp", None, "model"))
+    return h @ params["w_down"]
 
 
 # --------------------------------------------------------------------------
@@ -402,10 +414,16 @@ def _moe_expert_ffn(dispatched, w_gate, w_up, w_down, activation: str) -> torch.
 def moe_apply(params: Params, spec: MoESpec, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity-bounded top-k MoE; returns (out (B,S,D), aux_loss ()).
 
-    The reference's local path (``layers.py:418``): each batch row is one
-    token group, dispatched into per-expert capacity slots, run through
-    every expert's FFN (empty slots give exact zeros) and combined with its
-    gate weights."""
+    Two paths, chosen as the reference chooses (``layers.py:432``):
+
+    * **local**: each batch row is one token group, dispatched into
+      per-expert capacity slots, run through every expert's FFN (empty
+      slots give exact zeros) and combined with its gate weights;
+    * **expert-parallel**, when an activation-sharding context with a mesh
+      and a model axis is installed: :func:`_moe_apply_shard_map`."""
+    ctx = current_act_ctx()
+    if ctx is not None and ctx.get("mesh") is not None and ctx.get("model"):
+        return _moe_apply_shard_map(params, spec, x, ctx)
     T = x.shape[1]
     gate_vals, flat_e, flat_p, keep, aux, C = _moe_route(params, spec, x)
     dispatched = _moe_dispatch(x, flat_e, flat_p, spec.n_experts, C)
@@ -413,6 +431,108 @@ def moe_apply(params: Params, spec: MoESpec, x: torch.Tensor) -> Tuple[torch.Ten
                         spec.activation)
     out = _moe_combine(h, flat_e, flat_p, gate_vals, keep, T)
     return out.to(x.dtype), aux.mean()
+
+
+def _rank_blocks(value: Any, sharding) -> Dict[int, torch.Tensor]:
+    """Each rank's block of ``value`` under ``sharding``: views of a tensor
+    (``addressable_devices_indices_map``; a dimension the spec does not
+    divide raises), or a ``ShardedTensor``'s own blocks when it is laid out
+    so.  Nothing is copied unless a rank's device differs."""
+    from ..dist.placement import ShardedTensor
+
+    if isinstance(value, ShardedTensor):
+        pad = lambda spec: tuple(spec) + (None,) * (value.ndim - len(spec))
+        if value.sharding.mesh is not sharding.mesh or pad(value.sharding.spec) != pad(sharding.spec):
+            raise ValueError(f"{value} is not laid out as {sharding}")
+        return {sh.rank: sh.data for sh in value.addressable_shards}
+    imap = sharding.addressable_devices_indices_map(value.shape)
+    return {r: value[idx].to(sharding.mesh.device_of(r)) for r, idx in imap.items()}
+
+
+def _moe_apply_shard_map(params: Params, spec: MoESpec, x: torch.Tensor, ctx) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Explicit expert parallelism over the context's logical mesh (the
+    reference's ``shard_map`` program, ``layers.py:452``): every rank's
+    output block from :func:`_moe_ep_ranks`, assembled by ``x``'s spec from
+    the first rank holding each block (with sequence parallelism off the
+    replicas along "model" compute the same rows), and ``aux`` as the
+    ``pmean`` over "model", then over each data-parallel axis."""
+    from ..dist import collectives as col
+
+    x_sharding, outs, auxes = _moe_ep_ranks(params, spec, x, ctx)
+    out = x.new_empty(x.shape)
+    placed = set()
+    for r, index in x_sharding.addressable_devices_indices_map(x.shape).items():
+        key = tuple((s.start, s.stop) for s in index)
+        if key not in placed:
+            placed.add(key)
+            out[index] = outs[r].to(out.device, out.dtype)
+    mesh = x_sharding.mesh
+    aux = col.pmean(auxes, mesh, ctx["model"])
+    for ax in tuple(ctx["dp"]) if ctx["dp"] else ():
+        aux = col.pmean(aux, mesh, ax)
+    return out, aux[0]
+
+
+def _moe_ep_ranks(params: Params, spec: MoESpec, x: torch.Tensor, ctx):
+    """The reference's per-device ``local_fn`` for every rank of the
+    context's mesh.  It meets the other devices inside its body, so here it
+    runs as bulk-synchronous stages, each stage for every rank before the
+    next: (1) each rank's blocks of ``x`` and of the weights (views, no
+    copy); (2) the weights all-gathered over the FSDP axis ("data" when the
+    mesh has it); (3) routing and dispatch of the rank's flat local tokens
+    as one group (capacity per shard); (4) the ``all_to_all`` over "model"
+    to the experts' owners; (5) the FFN of the rank's ``E/ep`` experts;
+    (6) the reverse ``all_to_all``; (7) the combine.  A dimension that does
+    not split over its axes raises, as ``shard_map`` does; nothing falls
+    back to the local path.  Returns (``x``'s sharding, {rank: output block
+    (Bl, Sl, D)}, {rank: the shard's aux loss})."""
+    from ..dist import collectives as col
+    from ..dist.placement import NamedSharding, PartitionSpec as P
+
+    mesh = ctx["mesh"]
+    model_axis = ctx["model"]
+    dp_axes = tuple(ctx["dp"]) if ctx["dp"] else ()
+    sp = ctx.get("seq_parallel")
+    fsdp_axis = "data" if "data" in mesh.axis_names else None
+    E = spec.n_experts
+    ep = mesh.shape[model_axis]
+    assert E % ep == 0, f"experts {E} must divide EP degree {ep}"
+
+    x_sharding = NamedSharding(mesh, P(dp_axes or None, model_axis if sp else None, None))
+    w_in = NamedSharding(mesh, P(model_axis, fsdp_axis, None))       # (E, D, F)
+    w_out = NamedSharding(mesh, P(model_axis, None, fsdp_axis))      # (E, F, D)
+    xs = _rank_blocks(x, x_sharding)
+    router = _rank_blocks(params["router"], NamedSharding(mesh, P(fsdp_axis, None)))
+    wg = _rank_blocks(params["w_gate"], w_in)
+    wu = _rank_blocks(params["w_up"], w_in)
+    wd = _rank_blocks(params["w_down"], w_out)
+    if fsdp_axis:
+        router = col.all_gather(router, mesh, fsdp_axis, dim=0)
+        wg = col.all_gather(wg, mesh, fsdp_axis, dim=1)
+        wu = col.all_gather(wu, mesh, fsdp_axis, dim=1)
+        wd = col.all_gather(wd, mesh, fsdp_axis, dim=2)
+
+    routes, dispatched = {}, {}
+    for r, xl in xs.items():
+        Bl, Sl, D = xl.shape
+        x_flat = xl.reshape(1, Bl * Sl, D)
+        gate_vals, flat_e, flat_p, keep, aux, C = _moe_route({"router": router[r]}, spec, x_flat)
+        routes[r] = (gate_vals, flat_e, flat_p, keep, aux[0])
+        dispatched[r] = _moe_dispatch(x_flat, flat_e, flat_p, E, C)[0]         # (E, C, D)
+    # EP all-to-all: capacity slots travel to their expert's owner rank
+    routed = col.all_to_all(dispatched, mesh, model_axis, split_axis=0, concat_axis=1)
+    del dispatched                                                 # (E/ep, C*ep, D)
+    h = {r: _moe_expert_ffn(t[None], wg[r], wu[r], wd[r], spec.activation)[0]
+         for r, t in routed.items()}
+    del routed, wg, wu, wd
+    back = col.all_to_all(h, mesh, model_axis, split_axis=1, concat_axis=0)   # (E, C, D)
+    del h
+    outs = {}
+    for r, (gate_vals, flat_e, flat_p, keep, _) in routes.items():
+        Bl, Sl, D = xs[r].shape
+        outs[r] = _moe_combine(back[r][None], flat_e, flat_p, gate_vals, keep,
+                               Bl * Sl).reshape(Bl, Sl, D)
+    return x_sharding, outs, {r: route[4] for r, route in routes.items()}
 
 
 # --------------------------------------------------------------------------
@@ -480,6 +600,7 @@ def _mamba_inner(params: Params, spec: MambaSpec, xz: torch.Tensor, conv_state, 
     chunk of its own length."""
     B, S, _ = xz.shape
     di, ds = spec.d_inner, spec.d_state
+    xz = constrain(xz, ("dp", None, "model"))
     x, z = xz.chunk(2, dim=-1)                                     # (B,S,di)
 
     # causal depthwise conv with carried state (d_conv-1 trailing inputs)
@@ -519,6 +640,7 @@ def _mamba_inner(params: Params, spec: MambaSpec, xz: torch.Tensor, conv_state, 
         ys.append((hs * C_k[:, :, None, :]).sum(dim=-1))           # readout folded in
         h = hs[:, -1]
     y = torch.cat(ys, dim=1)[:, :S]                                # (B,S,di)
+    y = constrain(y, ("dp", None, "model"))
     y = y + params["D"] * xc[:, :S]
     y = y * torch.nn.functional.silu(z.float())
     return y.to(xz.dtype), new_conv_state, h
@@ -590,6 +712,9 @@ def mlstm_apply(params: Params, spec: XLSTMSpec, x: torch.Tensor, state=None, *,
     q = heads(params["wq"]) / math.sqrt(Hd)
     k = heads(params["wk"])
     v = heads(params["wv"])
+    q = constrain(q, ("dp", None, "model", None))
+    k = constrain(k, ("dp", None, "model", None))
+    v = constrain(v, ("dp", None, "model", None))
     if_ = (x.float() @ params["w_if"].reshape(D, -1)).reshape(B, S, H, 2) + params["b_if"]
     log_i = -torch.nn.functional.softplus(-if_[..., 0])       # (B,S,H)
     log_f = -torch.nn.functional.softplus(-if_[..., 1])
@@ -638,6 +763,7 @@ def mlstm_apply(params: Params, spec: XLSTMSpec, x: torch.Tensor, state=None, *,
         C_prev = C_prev * carry[..., None, None] + torch.einsum(
             "blhe,blhf->bhef", k_c * w_kv[..., None], v_c)
         n_prev = n_prev * carry[..., None] + torch.einsum("blhe,blh->bhe", k_c, w_kv)
+        C_prev = constrain(C_prev, ("dp", "model", None, None))
         m_prev = m_next
     y = torch.cat(ys, dim=1)[:, :S]
     y = rms_norm(params["out_norm"], y.to(x.dtype))
@@ -677,6 +803,7 @@ def slstm_apply(params: Params, spec: XLSTMSpec, x: torch.Tensor, state=None):
         state = slstm_init_state(spec, B, x.device)
     c, n, m, h = state
     wx = (x @ params["w_gates"]).float()                     # (B,S,4D)
+    wx = constrain(wx, ("dp", None, "model"))
     hs = []
     for t in range(S):
         rec = (h.to(x.dtype) @ params["r_gates"]).float()

@@ -42,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.deltacr import resolve_device
+from ..dist.sharding import constrain
 from ..kernels import ops as kops
 from . import layers as L
 
@@ -187,10 +188,13 @@ def _positions_for(cfg: ModelConfig, pos: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 # Attention over caches (decode path)
 # --------------------------------------------------------------------------
-def _masked_softmax_attend(q, k, v, mask, scale, eq_s: str, eq_o: str):
-    """float32 scores of ``q * scale`` against ``k``, masked to -1e30,
-    softmax over the key axis, values; in q's dtype."""
+def _masked_softmax_attend(q, k, v, mask, scale, eq_s: str, eq_o: str, s_axes=None):
+    """float32 scores of ``q * scale`` against ``k`` (constrained to the
+    logical ``s_axes`` when given), masked to -1e30, softmax over the key
+    axis, values; in q's dtype."""
     s = torch.einsum(eq_s, q.float() * scale, k.float())
+    if s_axes is not None:
+        s = constrain(s, s_axes)
     s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
     p = torch.softmax(s, dim=-1)
     return torch.einsum(eq_o, p, v.float()).to(q.dtype)
@@ -200,8 +204,10 @@ def _decode_attend_full(q, cache_k, cache_v, lens, scale):
     """q (B,1,KVH,G,Hd); cache (B,S,KVH,Hd); lens (B,) incl. current token."""
     S = cache_k.shape[1]
     mask = torch.arange(S, device=q.device)[None, :] < lens[:, None]      # (B,S)
+    # decode caches are sequence-sharded; heads stay unsharded here
     return _masked_softmax_attend(q, cache_k, cache_v, mask[:, None, None, None, :], scale,
-                                  "bqkgh,bskh->bkgqs", "bkgqs,bskh->bqkgh")
+                                  "bqkgh,bskh->bkgqs", "bkgqs,bskh->bqkgh",
+                                  s_axes=("dp", None, None, None, "seq"))
 
 
 def _decode_attend_ring(q, cache_k, cache_v, lens, scale):
@@ -370,6 +376,8 @@ def _apply_period(cfg: ModelConfig, period, period_params: Params, x: torch.Tens
                 kind, period_params[tag], cfg, x, pos, mode, period_cache.get(tag), lens
             )
             x = x + delta.to(x.dtype)
+            if x.shape[1] > 1:
+                x = constrain(x, ("dp", "sp", None))
             if aux_d is not None:
                 aux = aux_d if aux is None else aux + aux_d
             if state is not None and mode != "train":
@@ -380,7 +388,7 @@ def _apply_period(cfg: ModelConfig, period, period_params: Params, x: torch.Tens
 def _chunk_loss(hc: torch.Tensor, yc: torch.Tensor, head: torch.Tensor):
     """Summed next-token NLL and target count of one loss chunk: hidden
     (B, c, D), labels (B, c) (-1: no target), float32 head (V, D)."""
-    logits = hc.float() @ head.T                                   # (B,c,V)
+    logits = constrain(hc.float() @ head.T, ("dp", None, "model"))  # (B,c,V)
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, yc.clamp_min(0).long()[..., None])[..., 0]
     valid = (yc >= 0).float()
@@ -461,6 +469,8 @@ class Model:
             x = params["embed"][inputs.long()].to(self.dtype)
         if self.cfg.embed_scale:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=self.dtype, device=x.device)
+        if x.shape[1] > 1:
+            x = constrain(x, ("dp", "sp", None))
         return x
 
     def _head(self, params: Params) -> torch.Tensor:

@@ -42,7 +42,8 @@ def test_port_sources_are_covered():
         "page_copy.py", "paged_attention.py", "kvcache.py", "engine.py", "model.py", "layers.py",
         "sandbox_tree.py", "gc.py", "scheduler.py", "mcts.py", "fanout.py", "archetypes.py",
         "decode_task.py", "persist.py", "placement.py", "sharding.py", "shard_dump.py",
-        "mesh.py",
+        "mesh.py", "collectives.py", "serve.py", "quickstart.py", "mcts_search.py",
+        "rl_fanout.py", "train_lm.py",
     } <= names
 
 
@@ -52,6 +53,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.core.convert, repro_torch.configs, repro_torch.models;"
         "import repro_torch.serve, repro_torch.search;"
         "import repro_torch.dist, repro_torch.dist.sharding, repro_torch.launch.mesh;"
+        "import repro_torch.dist.collectives, repro_torch.launch.serve;"
+        "import repro_torch.examples.quickstart, repro_torch.examples.mcts_search;"
+        "import repro_torch.examples.rl_fanout, repro_torch.examples.train_lm;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes')];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
