@@ -140,11 +140,22 @@ Phases:
    at most 9a's plus 2 GiB, ``paged_attention`` once per layer a step; then
    the model is freed and (12c) ``repro_torch.launch.serve.main`` serves
    two sessions of 16 tokens at full olmo-1b width in this process;
+13. dry run — ``repro_torch.launch.dryrun``: (13a) ``run_cell`` traces
+   olmo-1b ``train_4k`` on a (16, 16) logical mesh of ``meta`` ranks and
+   qwen3-14b ``decode_32k`` on (16, 16) and (2, 16, 16), and prints each
+   record; (13b) olmo-1b ``train_4k`` at the largest global batch of 8, 4,
+   2, 1 that fits, and qwen3-14b ``decode_32k`` at global batch 4, each
+   traced on a (1, 1) ``meta`` mesh and then built by ``build_step`` on a
+   (1, 1) mesh of the card and run on seeded real arguments: the card's
+   ``FlopCounterMode`` count equal to the dry run's, the arguments' bytes
+   equal to its ``memory.argument_bytes`` (hard gates), the step's median
+   ms over 3 runs after a warm-up, its temp bytes and its FLOPs over the
+   card's bf16 dense peak; no kernel of the port launches;
 5. report — one JSON line per kernel, the ``{"kernels": [...]}`` line, the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Phases run in the order 1, 2, 3, 3b, 4, 6, 7, 8, 11, 4b, 9a, 12, 9b, 9c, 9d,
-10, 10b, 5.
+10, 10b, 13, 5.
 
 Any failure exits non-zero before the last line is printed.  The script
 imports nothing of JAX or of the JAX package.
@@ -4071,6 +4082,185 @@ def launcher_phase(launches: dict, card: str) -> None:
         launches[k] += n
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the multi-pod dry run on meta tensors, checked against the card
+# ---------------------------------------------------------------------------
+# 13a: dense cells traced on logical meshes of 256 and 512 meta ranks (the
+# MoE cells' expert-parallel trace over 256 ranks takes minutes: the CLI
+# sweep runs them)
+DRYRUN_CELLS = (("olmo-1b", "train_4k", False), ("qwen3-14b", "decode_32k", False),
+                ("qwen3-14b", "decode_32k", True))
+# 13b: cells cut in scale only, run for real on a (1, 1) mesh of the card:
+# (arch, shape, global batches to try, largest first)
+DRYRUN_CHECKS = (("olmo-1b", "train_4k", (8, 4, 2, 1)), ("qwen3-14b", "decode_32k", (4,)))
+DRYRUN_STEPS = 3                # 13b: timed steps after one warm-up
+
+
+def run_dryrun_cells(cells=DRYRUN_CELLS) -> list:
+    """13a: ``repro_torch.launch.dryrun.run_cell`` for each (arch, shape,
+    multi_pod) cell: records with the reference's keys, each with its wall
+    seconds.  Gate: every record is ``ok``."""
+    from repro_torch.launch import dryrun
+
+    out = []
+    for arch, shape_name, multi_pod in cells:
+        t = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape_name, multi_pod=multi_pod)
+        rec["wall_s"] = time.perf_counter() - t
+        assert rec["status"] == "ok", f"{arch} {shape_name}: {rec}"
+        out.append(rec)
+    return out
+
+
+def run_dryrun_check(device, *, arch: str, shape_name: str, global_batch: int,
+                     config=None, seq_len=None, steps: int = DRYRUN_STEPS,
+                     seed: int = 0) -> dict:
+    """13b: one cell of ``arch``'s ``shape_name`` cut to ``global_batch``
+    (and ``seq_len``), traced by the dry run on a (1, 1) mesh of a ``meta``
+    rank, then built by ``build_step`` on a (1, 1) mesh of ``device`` and
+    run on real arguments of exactly its example arguments' shapes
+    (``dryrun.materialize``: seeded weights, fresh AdamW state, seeded
+    tokens, a fresh cache).  ``config`` replaces the architecture's config
+    (a ``-tiny`` one on the CPU).
+
+    Gates (AssertionError): the device run's ``FlopCounterMode`` count
+    equals the dry run's ``flops`` exactly, and the real arguments' bytes
+    equal its ``memory.argument_bytes``.  Reports the step's median ms over
+    ``steps`` runs after a warm-up, and on the card the step's temp bytes
+    (``max_memory_allocated`` over the arguments and what was resident
+    before them) and its FLOPs over the card's bf16 dense peak."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    cfg = get_config(config or arch)
+    full = get_config(arch).shape(shape_name)
+    cut = {"global_batch": global_batch, **({"seq_len": seq_len} if seq_len else {})}
+    shape = dataclasses.replace(full, **cut)
+    reduced = {k: [getattr(full, k), v] for k, v in cut.items() if getattr(full, k) != v}
+
+    t = time.perf_counter()
+    rec = dryrun.trace_cell(cfg, shape, dryrun.mesh_for(False, shape=(1, 1)))
+    meta_s = time.perf_counter() - t
+
+    resident = torch.cuda.memory_allocated(dev) if cuda else 0
+    mesh = dryrun.mesh_for(False, shape=(1, 1), device=dev)
+    fn, args, _, _ = dryrun.build_step(cfg, shape, mesh)
+    t = time.perf_counter()
+    real = dryrun.materialize(cfg, shape, args, dev, seed=seed)
+    arg_bytes = sum(x.numel() * x.element_size() for x in dryrun.leaves(real))
+    assert arg_bytes == rec["memory"]["argument_bytes"], (
+        f"{arch}: the arguments hold {arg_bytes} B, the dry run says "
+        f"{rec['memory']['argument_bytes']}")
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    sync()
+    build_s = time.perf_counter() - t
+    counter = FlopCounterMode(display=False)
+    with dryrun.cell_context(cfg, shape, mesh), counter:
+        out = fn(*real)
+    del out
+    flops = counter.get_total_flops()
+    assert flops == rec["flops"], f"{arch}: {flops} FLOPs on {dev}, {rec['flops']} on meta"
+
+    ms = []
+    if cuda:
+        sync()
+        torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(steps + 1):            # the first is the warm-up
+        sync()
+        t = time.perf_counter()
+        with dryrun.cell_context(cfg, shape, mesh):
+            out = fn(*real)
+        sync()
+        del out
+        if i:
+            ms.append((time.perf_counter() - t) * 1e3)
+    step_ms = statistics.median(ms)
+    result = {
+        "arch": arch, "config": cfg.name, "shape": shape_name, "kind": shape.kind,
+        "global_batch": shape.global_batch, "seq_len": shape.seq_len, "reduced": reduced,
+        "device": str(dev), "argument_bytes": arg_bytes, "flops": flops,
+        "meta_trace_s": meta_s, "build_s": build_s, "step_ms": ms, "step_ms_median": step_ms,
+        "temp_bytes": None, "flops_fraction_of_bf16_peak": None,
+    }
+    if cuda:
+        peak = torch.cuda.max_memory_allocated(dev)
+        result["max_memory_allocated"] = peak
+        result["resident_before_bytes"] = resident
+        result["temp_bytes"] = peak - resident - arg_bytes
+        bf16_peak = BF16_DENSE_PEAK.get(torch.cuda.get_device_name(dev))
+        if bf16_peak:
+            result["flops_fraction_of_bf16_peak"] = flops / (step_ms / 1e3) / bf16_peak
+    return result
+
+
+def run_dryrun_checks(device, checks=DRYRUN_CHECKS) -> list:
+    """13b for each (arch, shape, batches) of ``checks``: the largest batch
+    of ``batches`` whose step fits on the card (a batch that runs out of
+    memory is noted and the next tried)."""
+    import torch
+
+    rows = []
+    for arch, shape_name, batches in checks:
+        too_big = []
+        for b in batches:
+            try:
+                row = run_dryrun_check(device, arch=arch, shape_name=shape_name, global_batch=b)
+            except torch.cuda.OutOfMemoryError:
+                too_big.append(b)
+                row = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            if row is not None:
+                row["batches_out_of_memory"] = too_big
+                rows.append(row)
+                break
+        else:
+            raise AssertionError(f"{arch} {shape_name}: no batch of {batches} fits")
+    return rows
+
+
+def dryrun_phase(device, card: str) -> None:
+    """Phase 13: 13a's records and 13b's checks printed; a failed gate or a
+    kernel launched fails the script."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t13 = time.perf_counter()
+    reset_launch_counts()
+    try:
+        recs = run_dryrun_cells()
+    except AssertionError as exc:
+        fail(f"phase 13a: {exc}")
+    for rec in recs:
+        say(f"[13a dry run] {json.dumps(rec)}")
+        say(f"[13a dry run] {rec['arch']} {rec['shape']} on {rec['mesh']}: traced in "
+            f"{rec['wall_s']:.1f} s on this host; {rec['flops']:.4e} FLOPs and "
+            f"{rec['memory']['argument_bytes']} B of arguments a rank")
+    try:
+        rows = run_dryrun_checks(device)
+    except AssertionError as exc:
+        fail(f"phase 13b: {exc}")
+    for row in rows:
+        say(f"[13b dry run on the card] {json.dumps(row)} (card: {card})")
+        say(f"[13b dry run on the card] {row['arch']} {row['shape']} at global batch "
+            f"{row['global_batch']} (cut from {row['reduced'].get('global_batch', ['-'])[0]}): "
+            f"FLOPs {row['flops']} and argument bytes {row['argument_bytes']} equal the dry "
+            f"run's; step {row['step_ms_median']:.1f} ms (median of {len(row['step_ms'])}), "
+            f"temp {row['temp_bytes']} B, {row['flops_fraction_of_bf16_peak']:.4f} of the "
+            f"bf16 dense peak (card: {card})")
+    if any(launch_counts().values()):
+        fail(f"phase 13 launched a kernel: {json.dumps(launch_counts())}")
+    say(f"[13 dry run] phase 13 ran {time.perf_counter() - t13:.1f} s (card: {card})")
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -4368,6 +4558,11 @@ def main() -> int:
         fail(f"phase 10b launched a kernel: {json.dumps(launch_counts())}")
     say(f"[10b train profile] {json.dumps(train_profile)} "
         f"({time.perf_counter() - t:.1f} s; card: {card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 13: the multi-pod dry run on meta tensors, checked against the card
+    dryrun_phase(device, card)
 
     # -- phase 5: report
     kernels = []

@@ -1,6 +1,8 @@
 """Serving runtime of the port: the paged copy-on-write KV pool, forkable
 sessions, the prefill/decode engine and the continuous-batching scheduler
-(without its persistence plane, which waits for ``core.persist``)."""
+with its persistence plane (``SchedulerConfig.persist_path``: suspended
+sessions saved through ``core.persist``, ``Scheduler.recover`` restarting
+the warm pool from them)."""
 from .engine import Engine, SamplingParams
 from .kvcache import (
     CowCorruptionError,

@@ -7,8 +7,11 @@ block's pages ``[r·n/S, (r+1)·n/S)``, a per-block float32 softmax that is
 against ``ref.paged_attention_ref`` on the CPU, with empty blocks, empty
 sessions and tables whose width is not a multiple of the split.
 """
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 import torch
 
 from repro_torch.kernels import ref

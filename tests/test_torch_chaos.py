@@ -16,10 +16,13 @@ A ``KernelError`` fails a dump in the port rather than falling back (its own
 test is in ``test_torch_deltacr.py``); the injected faults here keep the
 reference's retry and fallback.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import threading
 
 import numpy as np
-import pytest
 import torch
 
 from repro_torch.core import (

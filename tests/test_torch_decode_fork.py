@@ -14,6 +14,9 @@ back to the pool's device).  The port runs on the CPU here, with random
 weights drawn by its own ``Model.init``.
 """
 import pytest
+
+pytest.importorskip("torch")
+
 import torch
 
 from repro_torch.configs import get_config

@@ -7,9 +7,12 @@ the same numpy dict with ``convert.state_from_numpy``, so its pipeline takes
 the same plans through the kernels' plain versions.  Both get the same
 seeded writes; their images, statistics and restores must agree.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 from hypothesis import given, settings, strategies as st
 

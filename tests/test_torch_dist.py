@@ -10,9 +10,12 @@ stand-ins: no devices needed).  The port's own placement layer (``Mesh``,
 ``from_blocks``) and ``launch.mesh`` are tested on logical meshes on the
 CPU.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import jax
 import numpy as np
-import pytest
 import torch
 from jax.sharding import PartitionSpec as JP
 

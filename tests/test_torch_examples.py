@@ -4,12 +4,15 @@ asked, and without a card and without ``--device cpu`` exits 2 rather
 than falling back to the CPU.  ``train_lm`` runs its default model for 30
 steps of its 120 (a crash at step 20 and a restart from step 20's
 checkpoint), to stay well inside a test's time."""
+import pytest
+
+pytest.importorskip("torch")
+
 import os
 import subprocess
 import sys
 from pathlib import Path
 
-import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]

@@ -12,8 +12,11 @@ r``, and tiles past the last row zeroing ``[N, cap)``.  The model must
 give exactly ``ref.fused_encode_ref``'s outputs and write every slot of
 ``[0, cap)`` exactly once.
 """
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 import torch
 
 from repro_torch.kernels import ref

@@ -5,8 +5,11 @@ Every test here needs a CUDA card and skips without one; run them on the
 GPU machine with ``python -m pytest -m gpu tests/test_torch_gpu.py``.  This
 file imports no JAX, so it runs where the JAX package is not installed.
 """
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 import torch
 
 from repro_torch.core import CowTensorState, DeltaCR, DumpPolicy, state_to_numpy

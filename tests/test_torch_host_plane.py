@@ -1,9 +1,12 @@
 """The port's host plane (ChunkStore, digest encode, DeltaFS) against the
 JAX package's: the same payloads give the same chunk digests, pads and
 resolved bytes across write / checkpoint / rollback."""
+import pytest
+
+pytest.importorskip("torch")
+
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 from hypothesis import given, settings, strategies as st
 

@@ -7,12 +7,15 @@ The JAX package's ``tests/test_incremental_persist.py`` on the port: the same ca
 ``device="cpu"`` passed to every recovery (the port recovers onto the card
 unless asked not to), so recovered trunks are ``CowTensorState`` on the
 CPU."""
+import pytest
+
+pytest.importorskip("torch")
+
 import os
 import shutil
 import tempfile
 
 import numpy as np
-import pytest
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st

@@ -1,6 +1,10 @@
 """The port stands alone: no file of ``src/repro_torch`` and not
 ``chip_smoke.py`` imports JAX or the JAX package, importing the port
 loads neither, and its entry points run on the card unless asked not to."""
+import pytest
+
+pytest.importorskip("torch")
+
 import ast
 import subprocess
 import sys
@@ -8,7 +12,6 @@ from pathlib import Path
 
 import jax  # noqa: F401  (the suite shares one process with the JAX tests)
 import numpy as np
-import pytest
 import torch
 
 from repro_torch.core import CowTensorState, state_from_numpy
@@ -43,7 +46,7 @@ def test_port_sources_are_covered():
         "sandbox_tree.py", "gc.py", "scheduler.py", "mcts.py", "fanout.py", "archetypes.py",
         "decode_task.py", "persist.py", "placement.py", "sharding.py", "shard_dump.py",
         "mesh.py", "collectives.py", "serve.py", "quickstart.py", "mcts_search.py",
-        "rl_fanout.py", "train_lm.py",
+        "rl_fanout.py", "train_lm.py", "dryrun.py",
     } <= names
 
 
@@ -56,7 +59,9 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import repro_torch.dist.collectives, repro_torch.launch.serve;"
         "import repro_torch.examples.quickstart, repro_torch.examples.mcts_search;"
         "import repro_torch.examples.rl_fanout, repro_torch.examples.train_lm;"
+        "import os, repro_torch.launch.dryrun;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro', 'ml_dtypes')];"
+        "bad += ['XLA_FLAGS'] if 'XLA_FLAGS' in os.environ else [];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
     r = subprocess.run(

@@ -6,9 +6,12 @@ port's side CPU tensors take the plain PyTorch versions.  The CUDA kernels
 themselves are checked on the card by ``test_torch_gpu.py`` and
 ``chip_smoke.py``.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 from hypothesis import given, settings, strategies as st
 

@@ -6,11 +6,14 @@ A model-free harness writes seeded K/V rows straight into the pools (in
 place in the port, by rebinding in the JAX package), standing in for the
 decode step's scatter, so every session's content is known exactly.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import hashlib
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st

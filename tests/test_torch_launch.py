@@ -1,12 +1,15 @@
 """``python -m repro_torch.launch.train``, the port's training entry point:
 it trains on the CPU when asked, and without a card and without that
 request it exits non-zero rather than falling back to the CPU."""
+import pytest
+
+pytest.importorskip("torch")
+
 import os
 import subprocess
 import sys
 from pathlib import Path
 
-import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]

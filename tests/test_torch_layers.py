@@ -15,12 +15,15 @@ the port and ``lax.associative_scan`` in the JAX package: the two multiply
 the decay factors in different groupings, so its output and SSM state get
 1e-4 (up to 27 steps of rounding in each grouping, on values of order 1).
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.models import layers as JL

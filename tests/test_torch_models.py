@@ -12,13 +12,16 @@ Tolerance, float32 throughout: 1e-4 absolute and relative (both packages
 sum in different orders, and mamba's chunk recurrence groups its products
 differently, see ``test_torch_layers.py``).
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.configs import arch_names

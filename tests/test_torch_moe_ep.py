@@ -11,6 +11,10 @@ against ``moe_apply`` per shard, replicas along "model", the ``E % ep``
 error, gradients, views of the weights, and the collectives against numpy
 definitions of JAX's tiled semantics with the ledger's counts.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import contextlib
 import os
 import subprocess
@@ -18,7 +22,6 @@ import sys
 from pathlib import Path
 
 import numpy as np
-import pytest
 import torch
 
 from repro_torch.dist import collectives as col

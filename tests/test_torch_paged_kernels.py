@@ -6,9 +6,12 @@ running its Pallas kernels in interpret mode as its own tests do.  The
 sweeps are those of the JAX package's ``tests/test_kernels.py``;
 ``page_copy_stacked``, which the reference does not sweep, gets one here.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.kernels import ops as jops

@@ -5,6 +5,10 @@ The JAX package's ``tests/test_persist.py`` on the port's ``save_store`` and
 carry a trainer's archive across packages: the port's ``Trainer`` restores
 a JAX ``Trainer``'s ``save_checkpoints`` file with byte-equal params, and
 the JAX ``Trainer`` restores the port's."""
+import pytest
+
+pytest.importorskip("torch")
+
 import os
 
 import numpy as np

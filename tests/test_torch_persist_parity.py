@@ -17,13 +17,16 @@ the other package.  Digests are blake2b over the bytes, so every comparison
 is exact.  Both DeltaCRs run without async warm and land each dump inline,
 so both stores see one order of puts.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import hashlib
 import json
 import os
 
 import ml_dtypes
 import numpy as np
-import pytest
 import torch
 
 import repro.core as J

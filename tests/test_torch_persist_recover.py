@@ -6,12 +6,15 @@ The JAX package's ``tests/test_persist_recover.py`` on the port: the same cases,
 ``device="cpu"`` passed to every recovery (the port recovers onto the card
 unless asked not to), so recovered trunks are ``CowTensorState`` on the
 CPU."""
+import pytest
+
+pytest.importorskip("torch")
+
 import os
 import tempfile
 import threading
 
 import numpy as np
-import pytest
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st

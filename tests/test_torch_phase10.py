@@ -2,10 +2,13 @@
 ``olmo-1b-tiny``: training with a crash at the ``trainer.step`` seam,
 ``restore_latest`` and the resumed run, with every gate of the phase, and
 10b's warm-up, step and write (tier-1 runs them)."""
+import pytest
+
+pytest.importorskip("torch")
+
 import sys
 from pathlib import Path
 
-import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))

@@ -12,6 +12,10 @@ restore decoding exactly what a fast fork decodes, then a checkpoint after
 the session gains a page (another tile plan).  Kernel launch counts
 are card-only; the card runs the same functions at full width.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import sys
 from pathlib import Path
 

@@ -6,6 +6,10 @@ the (1, 8) layout with a (2, 2) one), with each rank's collective bytes
 against the formula; 12b serves phase 9a's run again under an
 activation-sharding context and holds it against the unsharded run; 12c
 calls the serving launcher in-process."""
+import pytest
+
+pytest.importorskip("torch")
+
 import sys
 from pathlib import Path
 

@@ -4,6 +4,10 @@ and recovers it in a fresh process, which checks the restored bytes, the
 restore over the anchored parent and the next turn against the writer's;
 8b restarts a scheduler's warm pool and decodes what a fast fork of the
 suspended session decoded."""
+import pytest
+
+pytest.importorskip("torch")
+
 import sys
 from pathlib import Path
 

@@ -3,10 +3,13 @@ gates run in tier-1.  9a serves the MoE model (forks, checkpoints, a slow
 restore, its routing held against the host's capacity rule), 9b the xLSTM model
 whose state is all recurrent, 9c the sliding-window model past its window;
 9d holds each new sublayer against a float32 run of itself."""
+import pytest
+
+pytest.importorskip("torch")
+
 import sys
 from pathlib import Path
 
-import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))

@@ -2,8 +2,11 @@
 every forced mode, the fused kernel path matches the unfused one
 chunk-for-chunk, prediction telemetry lands on images/health, and faults on
 the fused path ride the transactional retry/fallback plane."""
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 from hypothesis import given, settings, strategies as st
 
 from repro_torch.core import (

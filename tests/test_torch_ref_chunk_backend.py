@@ -1,10 +1,13 @@
 """Tiered chunk storage: hot/warm/cold demotion + promotion, LRU victim
 selection, byte accounting, digest-verified promotion with repair-source
 healing on corrupt tier payloads, and cross-sandbox digest dedupe."""
+import pytest
+
+pytest.importorskip("torch")
+
 import os
 
 import numpy as np
-import pytest
 
 from repro_torch.core import (
     ChunkCorruptionError,

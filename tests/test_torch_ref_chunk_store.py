@@ -1,6 +1,9 @@
 """ChunkStore: refcounting, dedupe, accounting invariants."""
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 from hypothesis import given, settings, strategies as st
 
 from repro_torch.core.chunk_store import ChunkStore

@@ -1,10 +1,13 @@
 """Delta dump pipeline: parity with legacy images, capacity overflow,
 dirty-key metadata reuse, pad round-trips, digest dedupe under FORCE_REF,
 and transient-checkpoint dirty-tracking safety."""
+import pytest
+
+pytest.importorskip("torch")
+
 import os
 
 import numpy as np
-import pytest
 
 from repro_torch.core import (
     ChunkStore,

@@ -1,8 +1,11 @@
 """DeltaCR: templates, eviction→slow-path, delta dumps, CowArrayState CoW."""
+import pytest
+
+pytest.importorskip("torch")
+
 import time
 
 import numpy as np
-import pytest
 from hypothesis import given, settings, strategies as st
 
 from repro_torch.core.chunk_store import ChunkStore

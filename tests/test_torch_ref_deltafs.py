@@ -2,8 +2,11 @@
 LayerStore/NamespaceView split (sibling views sharing frozen layers), and a
 hypothesis state machine checking the overlay against a dict-of-snapshots
 reference model."""
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 from hypothesis import given, settings, strategies as st
 
 from repro_torch.core.deltafs import DeltaFS, LayerStore, NamespaceView

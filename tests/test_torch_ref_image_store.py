@@ -1,11 +1,14 @@
 """ImageStore lifecycle plane: refcounted image lineage, reclaim-while-dump-
 in-flight (no wait_dumps convention), transactional dump cancellation."""
+import pytest
+
+pytest.importorskip("torch")
+
 import inspect
 import threading
 import time
 
 import numpy as np
-import pytest
 
 from repro_torch.core import (
     ChunkStore,

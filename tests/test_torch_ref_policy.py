@@ -1,11 +1,14 @@
 """DumpPolicy: validation, presets, the legacy-keyword deprecation shim, and
 policy plumbing through DeltaCR / apply_policy."""
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 import inspect
 import warnings
 
 import numpy as np
-import pytest
 
 from repro_torch.core import CowArrayState, DeltaCR, DumpPolicy
 from repro_torch.core.policy import LEGACY_KNOB_MAP, ModeSelector, _LinFit

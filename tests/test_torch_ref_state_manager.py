@@ -1,6 +1,9 @@
 """StateManager: coupled protocol, failure handling, LW replay, isolation, GC."""
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 
 from repro_torch.core import (
     CheckpointError,

@@ -1,11 +1,14 @@
 """Streaming dump engine: window parity vs the synchronous pipeline,
 cancellation rollback (transactional dumps), DumpGate QoS semantics, and
 scheduler-driven demotion / suspend coalescing."""
+import pytest
+
+pytest.importorskip("torch")
+
 import threading
 import time
 
 import numpy as np
-import pytest
 
 from repro_torch.core import (
     ChunkStore,

@@ -5,10 +5,13 @@ forks, writes, checkpoints, commits, releases and GC passes through both
 packages and compares their snapshot trees, images, chunk-store statistics
 and restored bytes.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import threading
 
 import numpy as np
-import pytest
 import torch
 
 import repro.core as J

@@ -11,13 +11,16 @@ packages sum in different orders), token streams and pool statistics
 exactly.  Both packages' DeltaCRs run without async warm, so page
 accounting does not depend on thread timing.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import dataclasses
 import threading
 from concurrent.futures import TimeoutError as FuturesTimeoutError
 
 import jax
 import numpy as np
-import pytest
 import torch
 
 import repro.core as J

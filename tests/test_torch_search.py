@@ -3,8 +3,11 @@
 CPU), a differential that runs the serial MCTS over ``SyntheticAgentTask``
 through both packages, and the archetype heap scatter against numpy's
 fancy assignment where its indices repeat."""
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 import torch
 
 import repro.core as J

@@ -10,10 +10,13 @@ orders): 1e-4 absolute and relative.  The JAX side runs its Pallas
 ``paged_attention`` in interpret mode, as its own tests do; the port runs
 the kernel's plain version, since its tensors lie on the CPU.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.configs import arch_names

@@ -13,10 +13,13 @@ rank; (2, 2) also all-gathers each rank's expert weights over "data"
 (FSDP) and, with one session a batch, keeps the batch unsharded
 (``dp=()``): a batch of one does not split over two data ranks.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import contextlib
 
 import numpy as np
-import pytest
 import torch
 
 from repro_torch.configs import get_config

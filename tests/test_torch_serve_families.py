@@ -14,9 +14,12 @@ restore must bring them back onto the pool's device and decode exactly
 what a fast fork decodes.  The first prompt is longer than gemma3's
 window, so its local layers mask in both prefill and paged decode.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import jax
 import numpy as np
-import pytest
 import torch
 
 import repro.core as J

@@ -12,9 +12,12 @@ and chunk digests (blake2b over the bytes), with byte-identical restores.
 The reference's plan is mesh-independent, so its single-device run is the
 yardstick.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import ml_dtypes
 import numpy as np
-import pytest
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st

@@ -10,6 +10,10 @@ the CPU here (``device="cpu"``: its generation anchors stay numpy grids);
 ``test_recovered_anchor_on_a_device_grid`` drives the other branch, a tile
 grid rebuilt as a tensor, as ``recover`` builds it on the card.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import ml_dtypes
 import numpy as np
 import torch

@@ -11,12 +11,15 @@ patched, the port run eagerly with its own patched.  The passes are
 ``loss_fn`` (the forward and the chunked loss) and ``prefill`` +
 ``decode_step`` on a dense cache.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import contextlib
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 import repro_torch.dist.placement as placement

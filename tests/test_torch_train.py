@@ -3,8 +3,11 @@ coupled checkpoint/restart, straggler watchdog, gradient compression,
 elastic reshard (a device per leaf, where the reference gives a
 ``SingleDeviceSharding``), data-pipeline determinism.  All on the CPU at
 ``olmo-1b-tiny``; this file imports no JAX."""
-import numpy as np
 import pytest
+
+pytest.importorskip("torch")
+
+import numpy as np
 import torch
 
 from repro_torch.configs import get_config

@@ -30,10 +30,13 @@ Bounds, float32 (the two packages sum in different orders; XLA fuses):
   AdamW's first steps are about lr × sign(g), so the gradients' float
   differences reach the params only where a gradient is near 0).
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro import train as J

@@ -12,10 +12,13 @@ input and to every param leaf, each within ``GRAD_TOL`` of that leaf's
 largest magnitude, float32 throughout: ``GRAD_TOL`` = 1e-4, as for the
 whole models (measured on the CPU: at most 4.9e-7 in every case).
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.models import layers as JL

@@ -20,10 +20,13 @@ The archs are split over this file, ``test_torch_train_step_b.py`` and
 ``test_torch_train_step_c.py`` so that each file stays well under a
 minute.
 """
+import pytest
+
+pytest.importorskip("torch")
+
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from repro.configs import arch_names

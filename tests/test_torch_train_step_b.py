@@ -3,6 +3,8 @@ that each stays well under a minute): the port's ``Model.loss_fn`` and its
 backward pass against the JAX package's, with the bounds stated there."""
 import pytest
 
+pytest.importorskip("torch")
+
 from repro.configs import arch_names
 from test_torch_train_step import CASES, check_arch
 

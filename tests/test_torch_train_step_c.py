@@ -4,6 +4,8 @@ a minute: the port's ``Model.loss_fn`` and its backward pass against the
 JAX package's, with the bounds stated there."""
 import pytest
 
+pytest.importorskip("torch")
+
 from test_torch_train_step import CASES, check_arch
 
 ARCHS_C = ["jamba-1.5-large-398b"]
