@@ -140,6 +140,18 @@ Phases:
    at most 9a's plus 2 GiB, ``paged_attention`` once per layer a step; then
    the model is freed and (12c) ``repro_torch.launch.serve.main`` serves
    two sessions of 16 tokens at full olmo-1b width in this process;
+14. decode graphs — on phase 6's model, right after phase 6: phase 6's
+   prompt prefilled, a checkpoint whose dump is still in flight when the
+   first step (the B = 1 capture) starts, 8 steps at B = 1 and 8 batched
+   steps of four forks, through ``Engine(graphs=False)`` and
+   ``Engine(graphs=True)`` in the order eager, graph, graph, eager: every
+   step's tokens equal, its logits within 2e-2 (equality expected; the
+   largest difference printed) and its launches of every kernel equal, each
+   graphed width replayed at every step after its first; the B = 1 and
+   B = 4 step ms of each mode, the capture ms of each width and the graph
+   pool's bytes.  Every other phase serves through the default, a CUDA
+   graph per batch width; phase 6's profiled B = 4 step is printed graphed
+   and eager;
 13. dry run — ``repro_torch.launch.dryrun``: (13a) ``run_cell`` traces
    olmo-1b ``train_4k`` on a (16, 16) logical mesh of ``meta`` ranks and
    qwen3-14b ``decode_32k`` on (16, 16) and (2, 16, 16), and prints each
@@ -154,8 +166,8 @@ Phases:
 5. report — one JSON line per kernel, the ``{"kernels": [...]}`` line, the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
-Phases run in the order 1, 2, 3, 3b, 4, 6, 7, 8, 11, 4b, 9a, 12, 9b, 9c, 9d,
-10, 10b, 13, 5.
+Phases run in the order 1, 2, 3, 3b, 4, 6, 14, 7, 8, 11, 4b, 9a, 12, 9b, 9c,
+9d, 10, 10b, 13, 5.
 
 Any failure exits non-zero before the last line is printed.  The script
 imports nothing of JAX or of the JAX package.
@@ -1094,15 +1106,17 @@ def _device_rows(prof) -> list:
     return rows
 
 
-def profile_decode_step(device, model, *, num_pages: int = SERVE_PAGES,
+def profile_decode_step(device, model, *, graphs=None, num_pages: int = SERVE_PAGES,
                         page_size: int = SERVE_PAGE_SIZE, max_pages: int = SERVE_MAX_PAGES,
                         prompt_len: int = SERVE_PROMPT, batch: int = SERVE_FORKS,
                         seed: int = 0) -> dict:
     """Phase 6's batched decode step under ``torch.profiler``, on a pool of
-    its own: phase 6's prompt prefilled, forked ``batch`` ways with
-    divergent pending tokens, one step to take the tail pages' CoW copies,
-    then the profiled step.  It runs after phase 7, since the profiler, once
-    used, slows the host's launches for the rest of the process."""
+    its own and an ``Engine(graphs=graphs)``: phase 6's prompt prefilled,
+    forked ``batch`` ways with divergent pending tokens, one step to take
+    the tail pages' CoW copies (and, graphed, to capture), then the
+    profiled step (graphed: a replay).  It runs after phase 7, since the
+    profiler, once used, slows the host's launches for the rest of the
+    process."""
     import numpy as np
 
     from repro_torch.serve import Engine, PagePool
@@ -1111,13 +1125,14 @@ def profile_decode_step(device, model, *, num_pages: int = SERVE_PAGES,
     rng = np.random.default_rng(seed)
     pool = PagePool(cfg, num_pages=num_pages, page_size=page_size,
                     max_pages_per_session=max_pages, device=device)
-    eng = Engine(model, pool)
+    eng = Engine(model, pool, graphs=graphs)
     trunk = eng.new_session(rng.integers(0, cfg.vocab_size, size=prompt_len).tolist())
     kids = [trunk.fork() for _ in range(batch)]
     for kid, a in zip(kids, rng.choice(cfg.vocab_size, size=batch, replace=False).tolist()):
         kid.tokens[-1] = int(a)
     eng.step(kids)
     profile = _profile_step(eng, kids)
+    profile["graphs"] = eng.graphs
     for sess in kids + [trunk]:
         sess.release()
     return profile
@@ -1145,6 +1160,157 @@ def _profile_step(eng, sessions, top: int = 8) -> dict:
         "device_idle_share": 1.0 - busy / wall if wall > 0 else None,
         "kernel_launches": sum(r[2] for r in rows),
         "top": [[name[:60], ms, n] for name, ms, n in rows[:top]],
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the Engine's decode programs as CUDA graphs, against the eager step
+# ---------------------------------------------------------------------------
+GRAPH_STEPS = 8                           # steps at each width: B = 1, then B = SERVE_FORKS
+GRAPH_TOL = 2e-2                          # graphed logits against the eager ones (equality expected)
+GRAPH_RUNS = (False, True, True, False)   # Engine(graphs=...) of each run: eager, graph, graph, eager
+
+
+def graph_pool_bytes(handle) -> int:
+    """Bytes of the caching allocator's segments in the graph memory pool
+    ``handle`` (0 for None)."""
+    import torch
+
+    if handle is None:
+        return 0
+    want = tuple(handle)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == want)
+
+
+def _graph_run(device, model, *, graphs: bool, prompt, actions, num_pages: int,
+               page_size: int, max_pages: int, steps: int) -> dict:
+    """One run of phase 14 through ``Engine(model, pool, graphs=graphs)`` on
+    a pool of its own: ``prompt`` prefilled, a checkpoint whose dump is
+    still in flight when the first step (graphed: the B = 1 capture)
+    starts, ``steps`` B = 1 steps, then ``len(actions)`` forks with those
+    pending tokens decoding ``steps`` batched steps.  Per step: the tokens,
+    the logits, the launches of every kernel and the host ms."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import DeltaCR, DumpPolicy
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serve import Engine, PagePool, PagedSession
+
+    on_card = torch.device(device).type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    sync()
+    reserved0 = torch.cuda.memory_reserved() if on_card else 0
+    pool = PagePool(model.cfg, num_pages=num_pages, page_size=page_size,
+                    max_pages_per_session=max_pages, device=device)
+    eng = Engine(model, pool, graphs=graphs)
+    cr = DeltaCR(async_warm=False, policy=DumpPolicy(mode="delta"),
+                 restore_fn=lambda p: PagedSession.restore_from_payload(pool, p))
+    rec = {"tokens": [], "logits": [], "launches": [], "ms": [], "batch": []}
+
+    def step(batch):
+        before = launch_counts()
+        sync()
+        t = time.perf_counter()
+        rec["tokens"].append(eng.step(batch))
+        sync()
+        rec["ms"].append((time.perf_counter() - t) * 1e3)
+        rec["launches"].append({k: n - before[k] for k, n in launch_counts().items()})
+        rec["logits"].append(np.stack([s.extras["last_logits"] for s in batch]))
+        rec["batch"].append(len(batch))
+
+    trunk = eng.new_session(prompt)
+    cr.checkpoint(trunk, 1, None)
+    dump = cr.dump_future(1)
+    rec["dump_in_flight_at_first_step"] = not dump.done()
+    step([trunk])
+    rec["dump_in_flight_after_first_step"] = not dump.done()
+    for _ in range(steps - 1):
+        step([trunk])
+    kids = [trunk.fork() for _ in actions]
+    for kid, a in zip(kids, actions):
+        kid.tokens[-1] = int(a)
+    for _ in range(steps):
+        step(kids)
+    cr.wait_dumps()
+    sync()
+    progs = sorted(eng._decode.values(), key=lambda p: p.batch)
+    if graphs and not all(p.graph is not None and p.replays == steps - 1 for p in progs):
+        raise AssertionError(f"graphed run: {[(p.batch, p.replays) for p in progs]} replays, "
+                             f"expected {steps - 1} at each width")
+    rec["capture_ms"] = {p.batch: p.capture_ms for p in progs}
+    rec["graph_pool_bytes"] = graph_pool_bytes(eng._graph_pool)
+    rec["reserved_growth_bytes"] = torch.cuda.memory_reserved() - reserved0 if on_card else None
+    for sess in kids + [trunk]:
+        sess.release()
+    cr.shutdown()
+    return rec
+
+
+def run_graph_path(device, model, *, num_pages: int = SERVE_PAGES,
+                   page_size: int = SERVE_PAGE_SIZE, max_pages: int = SERVE_MAX_PAGES,
+                   prompt_len: int = SERVE_PROMPT, forks: int = SERVE_FORKS,
+                   steps: int = GRAPH_STEPS, runs=GRAPH_RUNS, seed: int = 0) -> dict:
+    """Phase 14: on phase 6's model and prompt, the runs of ``_graph_run``
+    with ``graphs`` as ``runs`` lists them (a CPU rehearsal runs eager
+    only).  Gates, against the
+    first eager run: every step's tokens equal, its logits within
+    ``GRAPH_TOL``, and its launches of every kernel equal; each graphed
+    width replayed at every step after its first.  Returns the largest
+    logit difference, each mode's B = 1 and B = ``forks`` step ms (medians
+    over both runs of the mode, without each width's first step), and each
+    graphed run's capture ms by width, graph-pool bytes and reserved-memory
+    growth."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cfg = model.cfg
+    prompt = rng.integers(0, cfg.vocab_size, size=prompt_len).tolist()   # phase 6's prompt
+    actions = rng.choice(cfg.vocab_size, size=forks, replace=False).tolist()
+    recs = [_graph_run(device, model, graphs=g, prompt=prompt, actions=actions,
+                       num_pages=num_pages, page_size=page_size, max_pages=max_pages,
+                       steps=steps) for g in runs]
+    ref = recs[runs.index(False)]
+    diff = 0.0
+    for g, rec in zip(runs, recs):
+        if rec["tokens"] != ref["tokens"]:
+            raise AssertionError(f"graphs={g}: tokens {rec['tokens']} differ from the eager "
+                                 f"run's {ref['tokens']}")
+        if rec["launches"] != ref["launches"]:
+            raise AssertionError(f"graphs={g}: launches per step {rec['launches']} differ from "
+                                 f"the eager run's {ref['launches']}")
+        for a, b in zip(rec["logits"], ref["logits"]):
+            diff = max(diff, float(np.abs(a - b).max()))
+    if diff > GRAPH_TOL:
+        raise AssertionError(f"graphed logits differ from the eager ones by {diff} > {GRAPH_TOL}")
+
+    def median_ms(graphs: bool, batch: int) -> float:
+        ms = [m for g, rec in zip(runs, recs) if g == graphs
+              for i, (m, b) in enumerate(zip(rec["ms"], rec["batch"]))
+              if b == batch and rec["batch"].index(b) != i]
+        return statistics.median(ms)
+
+    graphed = [rec for g, rec in zip(runs, recs) if g]
+    return {
+        "config": cfg.name,
+        "runs": ["graph" if g else "eager" for g in runs],
+        "steps_per_width": steps,
+        "max_abs_logit_diff": diff,
+        "tokens_equal": True,
+        "launches_per_step": ref["launches"][-1],
+        "step_ms_b1": {m: median_ms(g, 1) for m, g in (("eager", False), ("graph", True))
+                       if g in runs},
+        f"step_ms_b{forks}": {m: median_ms(g, forks) for m, g in (("eager", False), ("graph", True))
+                              if g in runs},
+        "first_step_ms": [{str(b): rec["ms"][rec["batch"].index(b)] for b in (1, forks)}
+                          for rec in recs],
+        "capture_ms": [rec["capture_ms"] for rec in graphed],
+        "graph_pool_bytes": [rec["graph_pool_bytes"] for rec in graphed],
+        "reserved_growth_bytes": [rec["reserved_growth_bytes"] for rec in recs],
+        "dump_in_flight_at_capture": [rec["dump_in_flight_at_first_step"] for rec in graphed],
+        "dump_in_flight_after_capture_step": [rec["dump_in_flight_after_first_step"]
+                                              for rec in graphed],
     }
 
 
@@ -3158,7 +3324,9 @@ def run_family_path(
     fork's tokens and logits; the forks decode pairwise different streams.
     An MoE config's routing at prefill and over the forks' steps is held
     against the host's capacity rule (``check_capacity_rule``), and one
-    batched step is profiled on the card.  Returns the metrics, with the
+    batched step is profiled on the card.  On a graphed engine the routing
+    of a width is recorded at its first step (eager) and at its capture;
+    the captured tensors hold the last replay's routing when it is checked.  Returns the metrics, with the
     trunk's greedy tokens and (not JSON) its prefill logits."""
     import numpy as np
     import torch
@@ -4350,6 +4518,32 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- phase 14: the decode programs as CUDA graphs against the eager step
+    #    (launch counts taken over exactly this run)
+    t14 = time.perf_counter()
+    reset_launch_counts()
+    try:
+        graphed = run_graph_path(device, model)
+    except AssertionError as exc:
+        fail(f"phase 14: {exc}")
+    graph_launches = launch_counts()
+    say(f"[14 graphs] launches {json.dumps(graph_launches)}")
+    for k in ("paged_attention", "page_copy_stacked"):
+        if graph_launches[k] <= 0:
+            fail(f"kernel {k} was not launched on phase 14's path")
+    say(f"[14 graphs] {json.dumps(graphed)} (card: {card})")
+    b4 = f"step_ms_b{SERVE_FORKS}"
+    say(f"[14 graphs] {SERVE_CONFIG}: step B = 1 {graphed['step_ms_b1']['graph']:.2f} ms graphed "
+        f"against {graphed['step_ms_b1']['eager']:.2f} ms eager, B = {SERVE_FORKS} "
+        f"{graphed[b4]['graph']:.2f} ms against {graphed[b4]['eager']:.2f} ms; capture ms "
+        f"{json.dumps(graphed['capture_ms'])}, graph pool {graphed['graph_pool_bytes']} B, "
+        f"largest logit difference {graphed['max_abs_logit_diff']}; phase 14 ran "
+        f"{time.perf_counter() - t14:.1f} s (card: {card})")
+    for k, n in graph_launches.items():
+        launches[k] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- phase 7: agent search (launch counts taken over exactly this run)
     reset_launch_counts()
     search = run_search_path(device, model=model)
@@ -4451,8 +4645,12 @@ def main() -> int:
     say(f"[11 sharded] phase 11 ran {time.perf_counter() - t11:.1f} s (card: {card})")
     gc.collect()
     torch.cuda.empty_cache()
-    say(f"[6 serving] B = {SERVE_FORKS} decode step profiled after phases 7, 8 and 11: "
-        f"{json.dumps(profile_decode_step(device, model))} (card: {card})")
+    say(f"[6 serving] B = {SERVE_FORKS} decode step profiled after phases 7, 8 and 11, graphed "
+        f"(a replay): {json.dumps(profile_decode_step(device, model))} (card: {card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"[6 serving] the same step eager: "
+        f"{json.dumps(profile_decode_step(device, model, graphs=False))} (card: {card})")
     del model
     gc.collect()
     torch.cuda.empty_cache()

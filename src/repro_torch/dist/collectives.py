@@ -29,7 +29,9 @@ one tensor, as replicas on one card share a block in ``placement``.
 :data:`LEDGER` counts, by op and by rank, the bytes each rank receives
 from *other* ranks: what would cross the interconnect on a mesh of
 cards.  It is the counterpart of the collective bytes the JAX package's
-dry run reads from HLO.
+dry run reads from HLO.  A collective captured in a CUDA graph is noted
+at each replay of the graph, as an eager call is at each call
+(``kernels.accounting``).
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ from typing import Dict, List, Mapping
 import numpy as np
 import torch
 
+from ..kernels.accounting import record
 from .placement import Mesh
 
 __all__ = [
@@ -125,7 +128,7 @@ def all_gather(blocks: Mapping[int, torch.Tensor], mesh: Mesh, axis: str,
                 made[dev] = torch.cat([blocks[g].to(dev) for g in group], dim=dim)
             out[r] = made[dev]
             received[r] = total - _nbytes(blocks[r])
-    LEDGER.note("all_gather", received)
+    record(LEDGER.note, "all_gather", received)
     return out
 
 
@@ -153,7 +156,7 @@ def all_to_all(blocks: Mapping[int, torch.Tensor], mesh: Mesh, axis: str,
                 pieces.append(blocks[g].narrow(split_axis, i * size, size).to(dev))
             out[r] = torch.cat(pieces, dim=concat_axis)
             received[r] = sum(_nbytes(p) for g, p in zip(group, pieces) if g != r)
-    LEDGER.note("all_to_all", received)
+    record(LEDGER.note, "all_to_all", received)
     return out
 
 
@@ -174,5 +177,5 @@ def pmean(values: Mapping[int, torch.Tensor], mesh: Mesh, axis: str) -> Dict[int
                 made[dev] = torch.stack([values[g].to(dev) for g in group]).mean(dim=0)
             out[r] = made[dev]
             received[r] = total - _nbytes(values[r])
-    LEDGER.note("pmean", received)
+    record(LEDGER.note, "pmean", received)
     return out

@@ -10,7 +10,9 @@
 * ``paged_attention`` — GQA decode attention through a page table.
 
 Each kernel ships as ``csrc/<name>.cu`` plus a wrapper ``<name>.py`` that
-checks its inputs, launches on the current stream and counts launches;
+checks its inputs, launches on the current stream and counts launches
+(through ``accounting``, whose record a captured CUDA graph applies at each
+replay);
 ``ops.py`` routes CUDA tensors to the kernels and CPU tensors to the plain
 versions in ``ref.py``; ``_build.py`` compiles ``csrc/`` at first use.
 """

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, accounting
 from .ref import delta_apply_ref
 
 __all__ = ["delta_apply"]
@@ -49,7 +49,7 @@ def delta_apply(base: torch.Tensor, data: torch.Tensor, idx: torch.Tensor) -> to
         _build.stream_handle(base),
     )
     _build.check(err, "delta_apply")
-    delta_apply.launches += 1
+    accounting.count_launches(delta_apply)
     return base
 
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, accounting
 from .ref import delta_diff_ref
 
 __all__ = ["delta_diff"]
@@ -42,7 +42,7 @@ def delta_diff(old: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
         _build.stream_handle(new),
     )
     _build.check(err, "delta_diff")
-    delta_diff.launches += 1
+    accounting.count_launches(delta_diff)
     return dirty
 
 

@@ -31,7 +31,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build
+from . import _build, accounting
 from .ref import CHECKSUM_LANES, fused_encode_ref
 
 __all__ = ["MAX_TILE_ROWS", "TILE_BYTES", "delta_fused", "scratch_bytes", "tile_count",
@@ -92,7 +92,7 @@ def delta_fused(
         _build.stream_handle(new),
     )
     _build.check(err, "delta_fused")
-    delta_fused.launches += 1
+    accounting.count_launches(delta_fused)
     return data, idx, count, sums.view(torch.uint32)
 
 

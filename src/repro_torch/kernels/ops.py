@@ -66,7 +66,9 @@ _KERNELS = {
 
 
 def launch_counts() -> dict:
-    """Kernel launches on CUDA tensors since the last reset, by kernel."""
+    """Kernel launches on CUDA tensors since the last reset, by kernel.  A
+    replay of a captured CUDA graph adds the launches its capture recorded
+    (``accounting``), so a graphed step counts what an eager one does."""
     return {name: fn.launches for name, fn in _KERNELS.items()}
 
 

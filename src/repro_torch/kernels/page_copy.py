@@ -30,7 +30,7 @@ from typing import Any, List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, accounting
 from .ref import page_copy_stacked_ref
 
 __all__ = ["MAX_PAIRS", "MAX_POOLS", "launch_kernel", "page_copy", "page_copy_stacked"]
@@ -128,14 +128,14 @@ def page_copy_stacked(pool: Pools, src_idx: Any, dst_idx: Any) -> Pools:
     """``pool[:, dst] = pool[:, src]`` in place over ``(N_periods, P, psz,
     KVH, D)``, for one pool or for each pool of a sequence of pools of one
     shape, dtype and device; returns what it was given."""
-    page_copy_stacked.launches += _copy(_pool_list(pool), src_idx, dst_idx)
+    accounting.count_launches(page_copy_stacked, _copy(_pool_list(pool), src_idx, dst_idx))
     return pool
 
 
 def page_copy(pool: torch.Tensor, src_idx: Any, dst_idx: Any) -> torch.Tensor:
     """``pool[dst] = pool[src]`` in place over ``(P, psz, KVH, D)``;
     returns ``pool``."""
-    page_copy.launches += _copy(_pool_list(pool[None]), src_idx, dst_idx)
+    accounting.count_launches(page_copy, _copy(_pool_list(pool[None]), src_idx, dst_idx))
     return pool
 
 

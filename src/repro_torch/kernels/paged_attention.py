@@ -31,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, accounting
 from .ref import paged_attention_ref
 
 __all__ = ["paged_attention", "split_count", "max_active_clusters"]
@@ -117,7 +117,7 @@ def paged_attention(
         float(scale), _DTYPE_CODE[q.dtype], _build.stream_handle(q),
     )
     _build.check(err, "paged_attention")
-    paged_attention.launches += 1
+    accounting.count_launches(paged_attention)
     return out
 
 

@@ -256,7 +256,6 @@ def chunked_causal_attention(
     qc = q.reshape(B, n_chunks, chunk, KVH, G, Hd)
     kc = k.reshape(B, n_chunks, chunk, KVH, Hd)
     vc = v.reshape(B, n_chunks, chunk, KVH, Hd)
-    neg = torch.tensor(-1e30, dtype=torch.float32, device=q.device)
     base = torch.arange(chunk, device=q.device)
     if window is not None and window < n_chunks * chunk:
         n_kv_steps = min(-(-window // chunk) + 1, n_chunks)
@@ -276,7 +275,7 @@ def chunked_causal_attention(
             mask = (q_pos[:, None] >= kv_pos[None, :]) & (kv_pos < S)[None, :]
             if window is not None:
                 mask &= q_pos[:, None] - kv_pos[None, :] < window
-            s = torch.where(mask, s, neg)
+            s = s.masked_fill(~mask, -1e30)
             m_next = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_next[..., None])
             alpha = torch.exp(m - m_next)
@@ -346,6 +345,15 @@ def moe_init(gen: torch.Generator, spec: MoESpec, dtype, device) -> Params:
     }
 
 
+def _one_hot(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(ids, n)``, the same int64 values, without its range
+    check on the CPU, which reads the ids' min and max back to the host (on
+    the card the scatter checks them): a step of ours makes no host read
+    that a CUDA graph could not capture, on either device."""
+    out = torch.zeros(ids.shape + (n,), dtype=torch.int64, device=ids.device)
+    return out.scatter_(-1, ids.long().unsqueeze(-1), 1)
+
+
 def _moe_route(params: Params, spec: MoESpec, x: torch.Tensor):
     """Router + capacity positions for each batch row's token group.
 
@@ -360,10 +368,10 @@ def _moe_route(params: Params, spec: MoESpec, x: torch.Tensor):
     gate_vals, expert_ids = torch.topk(probs, K, dim=-1)           # (B,T,K)
     gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp_min(1e-9)
     # Switch-style load-balance aux
-    density = torch.nn.functional.one_hot(expert_ids[..., 0], E).float().mean(dim=1)
+    density = _one_hot(expert_ids[..., 0], E).float().mean(dim=1)
     aux = (density * probs.mean(dim=1)).sum(dim=-1) * E            # (B,)
     # position within each expert's capacity, in token-major (t, k) order
-    sel = torch.nn.functional.one_hot(expert_ids.reshape(B, T * K), E)   # (B,T*K,E)
+    sel = _one_hot(expert_ids.reshape(B, T * K), E)                     # (B,T*K,E)
     pos = ((sel.cumsum(dim=1) - sel) * sel).sum(dim=-1)            # (B,T*K)
     flat_e = expert_ids.reshape(B, T * K)
     keep = pos < C

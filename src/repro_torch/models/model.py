@@ -195,7 +195,7 @@ def _masked_softmax_attend(q, k, v, mask, scale, eq_s: str, eq_o: str, s_axes=No
     s = torch.einsum(eq_s, q.float() * scale, k.float())
     if s_axes is not None:
         s = constrain(s, s_axes)
-    s = torch.where(mask, s, torch.tensor(-1e30, device=q.device))
+    s = s.masked_fill(~mask, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum(eq_o, p, v.float()).to(q.dtype)
 
@@ -412,6 +412,11 @@ class Model:
         self.device = resolve_device(device)
         self.dtype = _dtype(cfg.dtype)
         self.params: Optional[Params] = params
+        # sqrt(d_model) rounded to the activation dtype, as a Python float:
+        # the product is the reference's (a 0-d tensor of that dtype) bit
+        # for bit, and the step uploads no scalar tensor (a CUDA graph
+        # cannot capture that copy)
+        self._embed_scale = float(torch.tensor(math.sqrt(cfg.d_model), dtype=self.dtype))
 
     # ------------------------------------------------------------- init
     def init(self, generator: torch.Generator) -> Params:
@@ -468,7 +473,7 @@ class Model:
         else:
             x = params["embed"][inputs.long()].to(self.dtype)
         if self.cfg.embed_scale:
-            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=self.dtype, device=x.device)
+            x = x * self._embed_scale
         if x.shape[1] > 1:
             x = constrain(x, ("dp", "sp", None))
         return x

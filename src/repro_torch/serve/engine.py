@@ -15,28 +15,51 @@ agent sandbox needs:
   replays the identical token stream, and the token streams equal the JAX
   package's on equal logits.
 
-It runs eagerly; there are no compiled-program caches.
+Decode programs.  The reference keeps one compiled program of
+``Model.decode_step`` per batch width (``_decode_jit``, ``_get_decode``).
+Here ``_get_decode(batch)`` gives a :class:`DecodeProgram` for that width:
+static input buffers (the tokens, lengths and page tables as one int32
+tensor, staged from one host buffer by one copy; each recurrent
+sublayer's states as ``(N_periods, B, ...)`` tensors) and, on a CUDA
+device, one CUDA graph of ``decode_step`` captured over them.  The pool's
+K/V tensors take part by address: they are written in place and never
+rebound.  A step stages its inputs, replays the graph, copies the logits
+to the host and clones the states once.  A width's first step on the card
+runs ``decode_step`` eagerly on a side stream (which builds the kernel
+library, initializes cuBLAS and gives that step's results), then captures;
+every later step of that width replays.  The graphs of all widths share
+one memory pool.  A capture or replay that fails raises: nothing falls
+back to the eager step.  On the CPU, or with ``graphs=False``, the same
+staging runs and ``decode_step`` runs eagerly over the static buffers.
+Programs are keyed by the exact width and by the activation-sharding
+context the step runs under (an expert-parallel MoE captures its per-rank
+stages whole).  Prefill stays eager: a graph per prompt length would
+replay once.
 
 Recurrent architectures (mamba/xlstm sublayers) carry their states in
 ``session.extras["stage{i}/{tag}"]``, one ``(N_periods, 1, ...)`` tensor
 per state leaf on the engine's device: fork is aliasing, restore is
-rebinding — the degenerate-but-fastest DeltaCR case.  Every step
-concatenates the batch's states into fresh tensors, which the model
-updates in place, and rebinds each session's extras to its slice of them,
-so a state a fork shares is never written.
+rebinding — the degenerate-but-fastest DeltaCR case.  A step copies the
+batch's states into the program's static buffers, which the model updates
+in place, then rebinds each session's extras to its slice of one clone of
+them: no session holds a view of a static buffer (the next replay
+overwrites those), so a state a fork shares is never written.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..dist.sharding import current_act_ctx
+from ..kernels import accounting
 from ..models.model import RECURRENT_KINDS, Model, stacked_cache_entry
 from .kvcache import PagePool, PagedSession
 
-__all__ = ["Engine", "SamplingParams"]
+__all__ = ["DecodeProgram", "Engine", "SamplingParams"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,17 +68,135 @@ class SamplingParams:
     seed: int = 0
 
 
+class DecodeProgram:
+    """``Model.decode_step`` at one batch width over static buffers, run
+    eagerly or replayed from a CUDA graph (see the module docstring)."""
+
+    def __init__(self, engine: "Engine", batch: int, *, graph: bool):
+        cfg, pool, dev = engine.cfg, engine.pool, engine.device
+        self.engine = engine
+        self.batch = batch
+        self.use_graph = graph
+        B, maxp = batch, pool.max_pages
+        # tokens | lengths | page tables, one host buffer and one copy
+        self.host = torch.empty((B * (2 + maxp),), dtype=torch.int32,
+                                pin_memory=dev.type == "cuda")
+        self.staged = torch.empty_like(self.host, device=dev)
+        self.tokens = self.staged[:B]
+        tables = self.staged[2 * B:].view(B, maxp)
+        self.cache: Dict[str, Any] = {"lens": self.staged[B:2 * B]}
+        # extras key -> leaf -> static (N, B, ...) state, written in place
+        self.states: Dict[str, Dict[str, torch.Tensor]] = {}
+        for i, stage in enumerate(cfg.stages):
+            entries: Dict[str, Any] = {}
+            for li, layer in enumerate(stage.period):
+                for si, kind in enumerate(layer):
+                    tag = f"l{li}_s{si}_{kind}"
+                    if kind in ("attn", "attn_local"):
+                        entries[tag] = {
+                            "pk": pool.pools_k[f"stage{i}"][tag],
+                            "pv": pool.pools_v[f"stage{i}"][tag],
+                            "table": tables.expand((stage.n_periods,) + tuple(tables.shape)),
+                        }
+                    elif kind in RECURRENT_KINDS:
+                        entries[tag] = self.states[f"stage{i}/{tag}"] = stacked_cache_entry(
+                            kind, cfg, stage.n_periods, B, 1, dev)
+            self.cache[f"stage{i}"] = entries
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.logits: Optional[torch.Tensor] = None      # the graph's output
+        self.notes: List[accounting.Note] = []          # what the capture counted
+        self.capture_ms: Optional[float] = None
+        self.replays = 0
+
+    def body(self) -> torch.Tensor:
+        """One decode step over the static buffers: the (B, V) float32
+        logits; K/V and the static states are written in place."""
+        return self.engine.model.decode_step(self.tokens, self.cache)[0]
+
+    def stage(self, sessions: Sequence[PagedSession]) -> None:
+        """Copy the batch's pending tokens, lengths, page tables and
+        recurrent states into the static buffers."""
+        pool = self.engine.pool
+        for skey, tag in pool.attn_tags:
+            entry = self.cache[skey][tag]
+            if pool.pools_k[skey][tag] is not entry["pk"] or pool.pools_v[skey][tag] is not entry["pv"]:
+                raise RuntimeError(f"the pool rebound its {skey}/{tag} K/V tensors, which a "
+                                   "decode program reads by address")
+        B = self.batch
+        h = self.host.numpy()
+        h[:B] = [s.tokens[-1] for s in sessions]
+        h[B:2 * B] = [s.seq_len for s in sessions]
+        h[2 * B:].reshape(B, -1)[:] = np.stack([s.table for s in sessions])
+        self.staged.copy_(self.host, non_blocking=True)
+        for key, leaves in self.states.items():
+            for b, s in enumerate(sessions):
+                for leaf, t in leaves.items():
+                    t[:, b:b + 1].copy_(s.extras[key][leaf])
+
+    def run(self) -> torch.Tensor:
+        """The step's logits (the graph's static output on a replay: read
+        it before the next run)."""
+        if not self.use_graph:
+            return self.body()
+        if self.graph is None:
+            return self._warm_up_and_capture()
+        self.graph.replay()
+        accounting.replay(self.notes)
+        self.replays += 1
+        return self.logits
+
+    def _warm_up_and_capture(self) -> torch.Tensor:
+        dev = self.engine.device
+        pool_handle, side = self.engine._capture_resources()
+        current = torch.cuda.current_stream(dev)
+        side.wait_stream(current)
+        # the warm-up is this step (its K/V writes and state updates are the
+        # real ones; a capture runs nothing), and it builds the kernel
+        # library, cuBLAS's handles and the SM-count cache before capture
+        with torch.cuda.stream(side):
+            logits = self.body()
+        current.wait_stream(side)
+        side.synchronize()
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        with accounting.recording() as notes:
+            with torch.cuda.graph(graph, pool=pool_handle, stream=side,
+                                  capture_error_mode="thread_local"):
+                static = self.body()
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.graph, self.logits, self.notes = graph, static, notes
+        return logits
+
+    def absorb(self, sessions: Sequence[PagedSession]) -> None:
+        """Rebind each session's states to its slice of one clone of the
+        static buffers."""
+        for key, leaves in self.states.items():
+            new = {leaf: t.clone() for leaf, t in leaves.items()}
+            for b, s in enumerate(sessions):
+                s.extras[key] = {leaf: t[:, b:b + 1] for leaf, t in new.items()}
+
+
 class Engine:
-    def __init__(self, model: Model, pool: PagePool):
+    def __init__(self, model: Model, pool: PagePool, graphs: Optional[bool] = None):
+        """``graphs=None``: a CUDA graph per batch width on a CUDA device,
+        the staged eager step on the CPU.  ``graphs=False`` runs the staged
+        eager step on the card too; ``graphs=True`` on the CPU raises."""
         if model.params is None:
             raise ValueError("Engine needs a model with weights (Model.init or params=)")
         if model.device.type != pool.device.type:
             raise ValueError(f"model on {model.device} but pool on {pool.device}")
+        on_card = model.device.type == "cuda"
+        if graphs and not on_card:
+            raise ValueError(f"graphs=True needs a CUDA device, the model is on {model.device}")
         self.model = model
         self.pool = pool
         self.cfg = model.cfg
         self.device = model.device
+        self.graphs = on_card if graphs is None else bool(graphs)
         self.decode_steps = 0
+        self._decode: Dict[Tuple[int, Any], DecodeProgram] = {}
+        self._graph_pool: Any = None          # one memory pool for every width's graph
+        self._side: Optional[torch.cuda.Stream] = None
 
     # ------------------------------------------------------------ sessions
     def new_session(
@@ -73,10 +214,12 @@ class Engine:
         with self.pool.lock:
             sess.ensure_writable(extra_tokens=S)
             sess.seq_len = S
-            cache = self._build_cache([sess], init_recurrent=True)
+            cache = self._prefill_cache(sess)
             tokens = torch.as_tensor([prompt], dtype=torch.int32, device=self.device)
             logits, new_cache = self.model.prefill(tokens, cache)
-            self._absorb_cache([sess], new_cache)
+            for key in self.pool.state_keys:
+                skey, tag = key.split("/")
+                sess.extras[key] = dict(new_cache[skey][tag])
         logits_np = logits[0].float().cpu().numpy()
         sess.extras["last_logits"] = logits_np
         sess.extras["prompt_len"] = np.asarray([S], np.int64)
@@ -94,7 +237,8 @@ class Engine:
         yet in the cache); the step commits its K/V at position ``seq_len``
         and samples the next pending token."""
         # The whole step holds the pool lock: the async-warm worker copies
-        # pages into the same pool tensors this step writes.  Every
+        # pages into the same pool tensors this step writes, and the next
+        # step of this width overwrites the program's outputs.  Every
         # session's page motion is planned first, then committed through ONE
         # transactional materialize: a failure rolls every plan back before
         # any decode math runs.
@@ -107,15 +251,13 @@ class Engine:
                 self.pool.discard_plans(plans)
                 raise
             self.pool.materialize(plans)
-            last = [s.tokens[-1] for s in sessions]
-            cache = self._build_cache(sessions)
-            tokens = torch.as_tensor(last, dtype=torch.int32, device=self.device)
-            logits, new_cache = self.model.decode_step(tokens, cache)
-            self._absorb_cache(sessions, new_cache)
+            prog = self._get_decode(len(sessions))
+            prog.stage(sessions)
+            logits_np = prog.run().cpu().numpy()
+            prog.absorb(sessions)
             for s in sessions:
                 s.seq_len += 1
         out = []
-        logits_np = logits.float().cpu().numpy()
         for i, s in enumerate(sessions):
             tok = self._sample(s, logits_np[i])
             s.tokens.append(tok)
@@ -133,6 +275,24 @@ class Engine:
         return [int(t) for t in session.tokens[plen : plen + n_tokens]]
 
     # ----------------------------------------------------------- internals
+    def _get_decode(self, batch: int) -> DecodeProgram:
+        """The decode program of width ``batch`` under the current
+        activation-sharding context, made on first use."""
+        ctx = current_act_ctx()
+        key = (batch, None if ctx is None else tuple(sorted(ctx.items())))
+        prog = self._decode.get(key)
+        if prog is None:
+            prog = self._decode[key] = DecodeProgram(self, batch, graph=self.graphs)
+        return prog
+
+    def _capture_resources(self) -> Tuple[Any, torch.cuda.Stream]:
+        """The graph memory pool every width shares and the side stream of
+        warm-ups and captures."""
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._side = torch.cuda.Stream(self.device)
+        return self._graph_pool, self._side
+
     def _sample(self, sess: PagedSession, logits: np.ndarray) -> int:
         temp = float(sess.extras["temperature"][0])
         if temp <= 0.0:
@@ -147,23 +307,16 @@ class Engine:
         sess.extras["rng_counter"] = np.asarray([counter + 1], np.int64)
         return tok
 
-    def _build_cache(self, sessions: Sequence[PagedSession], *,
-                     init_recurrent: bool = False) -> Dict[str, Any]:
-        """The paged cache for a batch: the pool's stacked K/V tensors and
-        the sessions' page tables, broadcast over periods (a view), and
-        each recurrent sublayer's states as fresh ``(N, B, ...)`` tensors:
-        initial states at prefill (``init_recurrent``), else the
-        concatenation of the sessions' extras."""
+    def _prefill_cache(self, sess: PagedSession) -> Dict[str, Any]:
+        """The paged cache of one session's prefill: the pool's stacked K/V
+        tensors and its page table, broadcast over periods (a view), and
+        each recurrent sublayer's initial states as fresh ``(N, 1, ...)``
+        tensors."""
         cfg = self.cfg
-        B = len(sessions)
         cache: Dict[str, Any] = {
-            "lens": torch.as_tensor(
-                [s.seq_len for s in sessions], dtype=torch.int32, device=self.device
-            )
+            "lens": torch.as_tensor([sess.seq_len], dtype=torch.int32, device=self.device)
         }
-        tables = torch.as_tensor(
-            np.stack([s.table for s in sessions]), dtype=torch.int32, device=self.device
-        )
+        table = torch.as_tensor(sess.table[None], dtype=torch.int32, device=self.device)
         for i, stage in enumerate(cfg.stages):
             entries: Dict[str, Any] = {}
             for li, layer in enumerate(stage.period):
@@ -173,26 +326,10 @@ class Engine:
                         entries[tag] = {
                             "pk": self.pool.pools_k[f"stage{i}"][tag],
                             "pv": self.pool.pools_v[f"stage{i}"][tag],
-                            "table": tables.expand((stage.n_periods,) + tuple(tables.shape)),
+                            "table": table.expand((stage.n_periods,) + tuple(table.shape)),
                         }
                     elif kind in RECURRENT_KINDS:
-                        if init_recurrent:
-                            entries[tag] = stacked_cache_entry(
-                                kind, cfg, stage.n_periods, B, 1, self.device)
-                        else:
-                            per = [s.extras[f"stage{i}/{tag}"] for s in sessions]
-                            entries[tag] = {
-                                leaf: torch.cat([p[leaf] for p in per], dim=1)
-                                for leaf in per[0]
-                            }
+                        entries[tag] = stacked_cache_entry(
+                            kind, cfg, stage.n_periods, 1, 1, self.device)
             cache[f"stage{i}"] = entries
         return cache
-
-    def _absorb_cache(self, sessions: Sequence[PagedSession], new_cache: Dict[str, Any]) -> None:
-        """Rebind each session's recurrent states to its slice of the step's
-        updated ``(N, B, ...)`` tensors (K/V were written into the pool in
-        place)."""
-        for key in self.pool.state_keys:
-            skey, tag = key.split("/")
-            for b, s in enumerate(sessions):
-                s.extras[key] = {leaf: t[:, b:b + 1] for leaf, t in new_cache[skey][tag].items()}
