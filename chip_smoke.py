@@ -103,9 +103,14 @@ Phases:
    loss on its batch; step time, tokens/s, MFU against the card's bf16 dense
    peak, peak memory, snapshot, background write and restore times; no
    kernel of the port launches (checkpoints go to the host DeltaFS);
-   (10b) one step of a fresh trainer under ``torch.profiler``: its device
-   busy time, idle share, matrix-product time and top kernels, then a
-   checkpoint whose background write is timed with the training idle;
+   (10b) one step of a fresh trainer under ``torch.profiler``, graphed (a
+   replay) and eager (in a fresh process, whose first profile drops no
+   device event): device busy time, idle share, matrix-product time,
+   top kernels and the kernel count, which must be equal; then a
+   checkpoint whose background write is timed with the training idle.
+   Training runs through ``Trainer``'s default on the card, one CUDA graph
+   of the whole step (``TrainProgram``), captured at the first step;
+   phase 10 checks that every later step replayed it;
 11. sharded dumps — over a logical mesh of eight ("data", "model") ranks
    on the one card: ``delta_fused``, ``delta_diff`` and ``delta_apply``
    bit-exact at its part grids; (11a) phase 4's C/R cell as a
@@ -152,6 +157,15 @@ Phases:
    pool's bytes.  Every other phase serves through the default, a CUDA
    graph per batch width; phase 6's profiled B = 4 step is printed graphed
    and eager;
+15. train graphs — right after phase 10, at its model and shape: one
+   seeded state trained 4 steps by ``Trainer(graphs=False)`` and by
+   ``Trainer(graphs=True)`` on the same batches: every step's loss, lr and
+   grad_norm within 1e-5 relative (equality expected), every params and
+   moment leaf after the last step within 1e-3 of the eager leaf's largest
+   magnitude (the largest difference printed), the graphed run replaying
+   every step after its first; step ms of each mode, the capture ms, the
+   graph pool's bytes, peak memory and allocation retries, and the
+   reserved bytes before and after ``Trainer.close()``;
 13. dry run — ``repro_torch.launch.dryrun``: (13a) ``run_cell`` traces
    olmo-1b ``train_4k`` on a (16, 16) logical mesh of ``meta`` ranks and
    qwen3-14b ``decode_32k`` on (16, 16) and (2, 16, 16), and prints each
@@ -167,7 +181,7 @@ Phases:
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
 Phases run in the order 1, 2, 3, 3b, 4, 6, 14, 7, 8, 11, 4b, 9a, 12, 9b, 9c,
-9d, 10, 10b, 13, 5.
+9d, 10, 15, 10b, 13, 5.
 
 Any failure exits non-zero before the last line is printed.  The script
 imports nothing of JAX or of the JAX package.
@@ -4032,6 +4046,14 @@ def run_train_path(device, *, config: str = TRAIN_CONFIG, seq_len: int = TRAIN_S
         raise AssertionError(f"first loss {losses[0]} outside [ln V - 1, ln V + 2] = "
                              f"[{ln_v - 1:.3f}, {ln_v + 2:.3f}]")
 
+    if trainer.graphs:
+        # one program, captured at the first step and replayed by every
+        # other, the resumed ones over the restored trees copied in
+        (prog,) = trainer._steps.values()
+        ran = fail_at + steps - ckpt_every
+        if prog.graph is None or prog.replays != ran - 1:
+            raise AssertionError(f"the step program replayed {prog.replays} times over "
+                                 f"{ran} steps")
     dts = [pre[k]["dt"] for k in sorted(pre)] + [post[k]["dt"] for k in sorted(post)]
     step_s = statistics.median(dts[1:])
     tokens = global_batch * seq_len
@@ -4070,6 +4092,10 @@ def run_train_path(device, *, config: str = TRAIN_CONFIG, seq_len: int = TRAIN_S
         "ckpt_wait_after_crash_s": wait_s,
         "restore_s": restore_s,
         "restored_leaves_bit_exact": compared,
+        "graphs": trainer.graphs,
+        "capture_ms": prog.capture_ms if trainer.graphs else None,
+        "graph_pool_bytes": graph_pool_bytes(trainer._graph_pool) if cuda else None,
+        "peak_reserved_bytes": torch.cuda.max_memory_reserved(device) if cuda else None,
         "host_available_before": host_before,
         "host_available_after": host_after,
         "phase_s": time.perf_counter() - t_phase,
@@ -4106,18 +4132,24 @@ def _write_stages(leaf, chunk_bytes: int) -> dict:
             "chunk_copy_mb_s": mb / copy}
 
 
-def profile_train_step(device, *, config: str = TRAIN_CONFIG, seq_len: int = TRAIN_SEQ,
-                       global_batch: int = TRAIN_BATCH, microbatches: int = TRAIN_MICROBATCHES,
-                       top: int = 10, seed: int = 0) -> dict:
-    """Phase 10b: where phase 10's step goes.  A fresh trainer at phase 10's
-    shape takes one step to warm up, then one step under ``torch.profiler``
-    (device activity only): host wall time, the device's busy time (sum of
-    its kernels, copies and memsets on the one stream), the idle share, the
-    time of the matrix products (kernels named like cuBLAS's) and the
-    kernels that take most of it.  Then one coupled checkpoint of the
-    state, its background write timed alone, with the training thread
-    idle (in phase 10 it overlaps a step), and the host stages of that
-    write for the largest moment leaf (``_write_stages``)."""
+def profile_train_step(device, *, graphs=None, write: bool = True, config: str = TRAIN_CONFIG,
+                       seq_len: int = TRAIN_SEQ, global_batch: int = TRAIN_BATCH,
+                       microbatches: int = TRAIN_MICROBATCHES, top: int = 10,
+                       seed: int = 0) -> dict:
+    """Phase 10b: where phase 10's step goes.  A fresh
+    ``Trainer(graphs=graphs)`` at phase 10's shape takes one step to warm up
+    (graphed: the capture), then one step under ``torch.profiler`` (device
+    activity only; graphed: a replay): host wall time, the device's busy
+    time (sum of its kernels, copies and memsets on the one stream), the
+    idle share, the kernels apart from the copies and memsets (a graph runs
+    its memcpy and memset nodes as kernels named ``memcpy*`` and
+    ``memset*``, counted as copies too), each by name, the time of the
+    matrix products (kernels named like cuBLAS's) and the kernels that take
+    most of it.  With ``write``, then
+    one coupled checkpoint of the state, its background write timed alone,
+    with the training thread idle (in phase 10 it overlaps a step), and the
+    host stages of that write for the largest moment leaf
+    (``_write_stages``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -4134,10 +4166,11 @@ def profile_train_step(device, *, config: str = TRAIN_CONFIG, seq_len: int = TRA
         OptimizerConfig(peak_lr=TRAIN_PEAK_LR, warmup_steps=TRAIN_WARMUP, total_steps=2),
         DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len, global_batch=global_batch),
         TrainerConfig(steps=2, ckpt_every=0, microbatches=microbatches, log_every=1),
+        graphs=graphs,
     )
     params, opt, err = trainer.init_state(seed)
     params, opt, err, _ = trainer.run(params, opt, err, steps=1)
-    out = {"config": cfg.name, "tokens": global_batch * seq_len}
+    out = {"config": cfg.name, "graphs": trainer.graphs, "tokens": global_batch * seq_len}
     if cuda:
         torch.cuda.synchronize(device)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -4145,31 +4178,236 @@ def profile_train_step(device, *, config: str = TRAIN_CONFIG, seq_len: int = TRA
             params, opt, err, _ = trainer.run(params, opt, err, start_step=1, steps=2)
             torch.cuda.synchronize(device)
             wall = (time.perf_counter() - t) * 1e3
+        if trainer.graphs and next(iter(trainer._steps.values())).replays != 1:
+            raise AssertionError("the profiled step did not replay the captured graph")
         rows = _device_rows(prof)
         busy = sum(r[1] for r in rows)
-        gemm = sum(r[1] for r in rows
+        # copies and memsets: the profiler's rows, and inside a graph the
+        # kernels that carry its memcpy and memset nodes
+        copy = ("Memcpy", "Memset", "memcpy", "memset")
+        kernels = [r for r in rows if not r[0].startswith(copy)]
+        gemm = sum(r[1] for r in kernels
                    if any(k in r[0].lower() for k in ("gemm", "nvjet", "cutlass", "xmma")))
         out.update({
             "step_wall_ms": wall,
             "device_busy_ms": busy,
             "idle_share": 1.0 - busy / wall,
             "device_events": sum(r[2] for r in rows),
+            "kernels": sum(r[2] for r in kernels),
+            "kernel_counts": {r[0]: r[2] for r in kernels},
+            "copy_counts": {r[0]: r[2] for r in rows if r[0].startswith(copy)},
             "matmul_ms": gemm,
             "top": [{"name": n[:120], "ms": ms, "count": c} for n, ms, c in rows[:top]],
         })
-    if cuda:
-        torch.cuda.synchronize(device)
-    t = time.perf_counter()
-    trainer.checkpoint(2, params, opt)
-    trainer.wait_checkpoints()
-    out["write_alone_s"] = time.perf_counter() - t
-    out["write_alone_bytes"] = trainer.ckpt_log[-1]["bytes"]
-    out["write_stages"] = _write_stages(max(tree_leaves(opt["m"]), key=lambda l: l.numel()),
-                                        trainer.fs.store.chunk_bytes)
+    if write:
+        if cuda:
+            torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        trainer.checkpoint(2, params, opt)
+        trainer.wait_checkpoints()
+        out["write_alone_s"] = time.perf_counter() - t
+        out["write_alone_bytes"] = trainer.ckpt_log[-1]["bytes"]
+        out["write_stages"] = _write_stages(max(tree_leaves(opt["m"]), key=lambda l: l.numel()),
+                                            trainer.fs.store.chunk_bytes)
+    trainer.close()
     del params, opt, err, trainer
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
+    return out
+
+
+TRAIN_PROFILE_CHILD_TIMEOUT_S = 600
+
+
+def profile_eager_train_step() -> dict:
+    """``profile_train_step`` of the eager step on the card, without the
+    write, in a fresh process whose first profile it is, with that
+    process's launches of the port's kernels (``launches``).  In a process
+    that has profiled before, the tracer drops some of an eager step's
+    ~126,000 device events (1 to 20 seen on an H100, at the window's start
+    and inside it), which a kernel count cannot have; a process's first
+    profile dropped none, and neither did any profile of a graph's
+    replay."""
+    code = (f"import sys, json; sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]; "
+            "import chip_smoke, torch; from repro_torch.kernels import launch_counts; "
+            "out = chip_smoke.profile_train_step(torch.device('cuda', 0), "
+            "graphs=False, write=False); "
+            "out['launches'] = launch_counts(); print(json.dumps(out))")
+    try:
+        child = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), text=True,
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                               timeout=TRAIN_PROFILE_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired as exc:
+        raise AssertionError(f"the profiling process was killed after {exc.timeout} s") from exc
+    if child.returncode != 0:
+        raise AssertionError(f"the profiling process exited {child.returncode}:\n"
+                             f"{child.stdout[-4000:]}\n{child.stderr[-4000:]}")
+    return json.loads(child.stdout.strip().splitlines()[-1])
+
+
+def kernel_count_diff(graphed: dict, eager: dict, key: str = "kernel_counts") -> dict:
+    """{name: [graphed count, eager count]} where the two profiles of phase
+    10b differ in ``key`` (``kernel_counts`` or ``copy_counts``)."""
+    a, b = graphed[key], eager[key]
+    return {k: [a.get(k, 0), b.get(k, 0)] for k in sorted(set(a) | set(b))
+            if a.get(k, 0) != b.get(k, 0)}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the Trainer's step program as a CUDA graph, against the eager step
+# ---------------------------------------------------------------------------
+TRAIN_GRAPH_STEPS = 4
+TRAIN_GRAPH_METRIC_RTOL = 1e-5    # loss, lr, grad_norm of a step against eager (equality expected)
+TRAIN_GRAPH_LEAF_TOL = 1e-3       # a leaf after the last step, of the eager leaf's largest |value|
+TRAIN_GRAPH_RUNS = (False, True)  # Trainer(graphs=...) of each run: eager, then graphed
+
+
+def _train_graph_run(device, cfg, data_cfg, params, opt, err, *, graphs: bool, steps: int,
+                     microbatches: int) -> tuple:
+    """One run of phase 15: ``Trainer(graphs=graphs).run`` for ``steps``
+    steps from the given trees (``donate=False``: never written).  Returns
+    the final params and optimizer state and the run's record: each step's
+    metrics and host ms, peak memory, and graphed, the capture ms, replays,
+    graph-pool bytes and the reserved bytes before and after ``close()``."""
+    import torch
+
+    from repro_torch.models import Model
+    from repro_torch.train import OptimizerConfig, Trainer, TrainerConfig
+
+    cuda = torch.device(device).type == "cuda"
+    trainer = Trainer(
+        Model(cfg, device=device),
+        OptimizerConfig(peak_lr=TRAIN_PEAK_LR, warmup_steps=TRAIN_WARMUP, total_steps=steps),
+        data_cfg,
+        TrainerConfig(steps=steps, ckpt_every=0, microbatches=microbatches, log_every=1),
+        graphs=graphs,
+    )
+    rec = {"graphs": trainer.graphs, "metrics": []}
+    train_step = trainer.train_step
+
+    def keep(p, o, e, batch):
+        out = train_step(p, o, e, batch)
+        rec["metrics"].append({k: float(v) for k, v in out[3].items()})
+        return out
+
+    trainer.train_step = keep
+    if cuda:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        retries0 = torch.cuda.memory_stats(device).get("num_alloc_retries", 0)
+    params, opt, _, _ = trainer.run(params, opt, err)
+    rec["step_ms"] = [m["dt"] * 1e3 for m in trainer.metrics_log]
+    if trainer.graphs:
+        (prog,) = trainer._steps.values()
+        if prog.graph is None or prog.replays != steps - 1:
+            raise AssertionError(f"the graphed run replayed {prog.replays} of {steps - 1} steps")
+        rec.update(capture_ms=prog.capture_ms, replays=prog.replays)
+        del prog
+    if cuda:
+        stats = torch.cuda.memory_stats(device)
+        rec.update(peak_allocated_bytes=torch.cuda.max_memory_allocated(device),
+                   peak_reserved_bytes=torch.cuda.max_memory_reserved(device),
+                   alloc_retries=stats.get("num_alloc_retries", 0) - retries0,
+                   graph_pool_bytes=graph_pool_bytes(trainer._graph_pool),
+                   reserved_before_close=torch.cuda.memory_reserved(device))
+    trainer.close()
+    del trainer, train_step, keep
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        rec["reserved_after_close"] = torch.cuda.memory_reserved(device)
+    return params, opt, rec
+
+
+def run_train_graph_path(device, *, config: str = TRAIN_CONFIG, seq_len: int = TRAIN_SEQ,
+                         global_batch: int = TRAIN_BATCH, microbatches: int = TRAIN_MICROBATCHES,
+                         steps: int = TRAIN_GRAPH_STEPS, runs=TRAIN_GRAPH_RUNS,
+                         seed: int = 0) -> dict:
+    """Phase 15: phase 10's model and shape at full width, one seeded state
+    (``Trainer.init_state``) trained for ``steps`` steps by each run of
+    ``_train_graph_run``, with ``graphs`` as ``runs`` lists them (a CPU
+    rehearsal runs eager only).  Every run takes that state itself:
+    without ``donate`` no step writes it, and a step that did would change
+    the next run's losses.  Gates, against the first eager run: every
+    step's loss, lr and grad_norm within ``TRAIN_GRAPH_METRIC_RTOL``
+    relative, and after the last step every params and moment leaf within
+    ``TRAIN_GRAPH_LEAF_TOL`` of the eager leaf's largest magnitude, the
+    step counters equal; a graphed run replays every step after its first.
+    Returns the largest differences, each run's step ms (the first apart),
+    capture ms, graph-pool bytes, peak memory and allocation retries."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.train import DataConfig, OptimizerConfig, Trainer, TrainerConfig
+    from repro_torch.train.optim import tree_paths
+
+    cfg = get_config(config)
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq_len, global_batch=global_batch)
+    seeded = Trainer(Model(cfg, device=device), OptimizerConfig(), data_cfg,
+                     TrainerConfig(microbatches=microbatches), graphs=False)
+    params, opt, err = seeded.init_state(seed)
+    del seeded
+    ends, recs = [], []
+    for graphs in runs:
+        p, o, rec = _train_graph_run(device, cfg, data_cfg, params, opt, err, graphs=graphs,
+                                     steps=steps, microbatches=microbatches)
+        recs.append(rec)
+        ends.append((dict(tree_paths(p)), dict(tree_paths(o))))
+        del p, o
+    del params, opt, err
+    ref = runs.index(False)
+    metric_diff, leaf_diff, leaf_at = 0.0, 0.0, None
+    for g, rec, (p, o) in zip(runs, recs, ends):
+        for i, (got, want) in enumerate(zip(rec["metrics"], recs[ref]["metrics"])):
+            for k, w in want.items():
+                rel = abs(got[k] - w) / max(abs(w), 1e-30)
+                metric_diff = max(metric_diff, rel)
+                if not rel <= TRAIN_GRAPH_METRIC_RTOL:
+                    raise AssertionError(f"graphs={g}: step {i + 1}'s {k} {got[k]!r} against "
+                                         f"the eager run's {w!r}")
+        for name, got, want in (("params", p, ends[ref][0]), ("opt", o, ends[ref][1])):
+            if sorted(got) != sorted(want):
+                raise AssertionError(f"graphs={g}: {name} leaves differ from the eager run's")
+            for path, w in want.items():
+                if path == "step":
+                    if not torch.equal(got[path], w):
+                        raise AssertionError(f"graphs={g}: step counter {got[path]} against {w}")
+                    continue
+                scale = max(float(w.float().abs().max()), 1e-30)
+                d = float((got[path].float() - w.float()).abs().max()) / scale
+                if d > leaf_diff:
+                    leaf_diff, leaf_at = d, f"{name}/{path}"
+                if not d <= TRAIN_GRAPH_LEAF_TOL:
+                    raise AssertionError(f"graphs={g}: {name}/{path} differs from the eager "
+                                         f"leaf by {d} of its largest magnitude")
+    del ends
+
+    def after_first(graphs: bool):
+        ms = [m for g, rec in zip(runs, recs) if g == graphs for m in rec["step_ms"][1:]]
+        return statistics.median(ms) if ms else None
+
+    out = {
+        "config": cfg.name,
+        "seq_len": seq_len,
+        "global_batch": global_batch,
+        "microbatches": microbatches,
+        "steps": steps,
+        "runs": ["graph" if g else "eager" for g in runs],
+        "losses": [[m["loss"] for m in rec["metrics"]] for rec in recs],
+        "max_metric_rel_diff": metric_diff,
+        "max_leaf_diff": leaf_diff,
+        "max_leaf_diff_at": leaf_at,
+        "step_ms_median": {m: after_first(g) for m, g in (("eager", False), ("graph", True))
+                           if g in runs},
+        "first_step_ms": [rec["step_ms"][0] for rec in recs],
+        "step_ms": [rec["step_ms"] for rec in recs],
+    }
+    for k in ("capture_ms", "replays", "graph_pool_bytes", "peak_allocated_bytes",
+              "peak_reserved_bytes", "alloc_retries", "reserved_before_close",
+              "reserved_after_close"):
+        out[k] = [rec.get(k) for rec in recs]
     return out
 
 
@@ -4743,19 +4981,57 @@ def main() -> int:
         f"{train['tokens_per_s']:.0f} tokens/s, MFU {train['mfu']}, peak "
         f"{train['peak_memory_bytes']} B; snapshot {train['snapshot_ms_synced']:.1f} ms, "
         f"background write {train['ckpt_write_s']:.1f} s for {train['ckpt_write_bytes']} B, "
-        f"restore {train['restore_s']:.1f} s; phase 10 ran {train['phase_s']:.1f} s "
-        f"(card: {card})")
+        f"restore {train['restore_s']:.1f} s; graphed {train['graphs']}, capture "
+        f"{train['capture_ms']} ms, graph pool {train['graph_pool_bytes']} B; phase 10 ran "
+        f"{train['phase_s']:.1f} s (card: {card})")
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- phase 10b: one profiled training step, and a checkpoint write alone
+    # -- phase 15: the train step program as a CUDA graph against the eager step
+    t15 = time.perf_counter()
+    reset_launch_counts()
+    try:
+        tgraph = run_train_graph_path(device)
+    except AssertionError as exc:
+        fail(f"phase 15: {exc}")
+    if any(launch_counts().values()):
+        fail(f"phase 15 launched a kernel: {json.dumps(launch_counts())}")
+    say(f"[15 train graphs] {json.dumps(tgraph)} (card: {card})")
+    say(f"[15 train graphs] {tgraph['config']}: step {tgraph['step_ms_median']['graph']:.1f} ms "
+        f"graphed against {tgraph['step_ms_median']['eager']:.1f} ms eager (medians after the "
+        f"first step; first steps {json.dumps(tgraph['first_step_ms'])} ms); capture "
+        f"{tgraph['capture_ms'][1]:.1f} ms, graph pool {tgraph['graph_pool_bytes'][1]} B, peak "
+        f"allocated {json.dumps(tgraph['peak_allocated_bytes'])} B; largest metric difference "
+        f"{tgraph['max_metric_rel_diff']} (relative), largest leaf difference "
+        f"{tgraph['max_leaf_diff']} at {tgraph['max_leaf_diff_at']}; phase 15 ran "
+        f"{time.perf_counter() - t15:.1f} s (card: {card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- phase 10b: one profiled training step graphed and eager (in a fresh
+    #    process), and a checkpoint write alone
     t = time.perf_counter()
     reset_launch_counts()
-    train_profile = profile_train_step(device)
-    if any(launch_counts().values()):
-        fail(f"phase 10b launched a kernel: {json.dumps(launch_counts())}")
-    say(f"[10b train profile] {json.dumps(train_profile)} "
+    try:
+        train_profile = profile_train_step(device)
+        eager_profile = profile_eager_train_step()
+    except AssertionError as exc:
+        fail(f"phase 10b: {exc}")
+    for prof_launches in (launch_counts(), eager_profile.pop("launches")):
+        if any(prof_launches.values()):
+            fail(f"phase 10b launched a kernel: {json.dumps(prof_launches)}")
+    say(f"[10b train profile] graphed (a replay): {json.dumps(train_profile)} (card: {card})")
+    say(f"[10b train profile] eager: {json.dumps(eager_profile)} (card: {card})")
+    diff = kernel_count_diff(train_profile, eager_profile)
+    say(f"[10b train profile] kernels a step: {train_profile['kernels']} graphed, "
+        f"{eager_profile['kernels']} eager; idle {train_profile['idle_share']:.4f} graphed, "
+        f"{eager_profile['idle_share']:.4f} eager; kernel counts that differ by name: "
+        f"{json.dumps(diff)}; copies and memsets by name, graphed against eager: "
+        f"{json.dumps(kernel_count_diff(train_profile, eager_profile, 'copy_counts'))} "
         f"({time.perf_counter() - t:.1f} s; card: {card})")
+    if train_profile["kernels"] != eager_profile["kernels"]:
+        fail(f"phase 10b: the graphed step ran {train_profile['kernels']} kernels, the eager "
+             f"step {eager_profile['kernels']}")
     gc.collect()
     torch.cuda.empty_cache()
 

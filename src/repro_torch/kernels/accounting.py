@@ -10,14 +10,18 @@ instead of applied, and the program that owns the graph applies the record
 at each replay (:func:`replay`).  A count then means what it means on the
 eager path: one per launch on the card.  Updates made by other threads
 meanwhile (a dump worker's launches during the capture) apply at once.
+:func:`warm_up_and_capture` makes such a graph and its record.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
+import time
 from typing import Any, Callable, Iterator, List, Tuple
 
-__all__ = ["Note", "count_launches", "record", "recording", "replay"]
+import torch
+
+__all__ = ["Note", "count_launches", "record", "recording", "replay", "warm_up_and_capture"]
 
 Note = Tuple[Callable[..., None], Tuple[Any, ...]]
 
@@ -60,3 +64,30 @@ def replay(notes: List[Note]) -> None:
     """Apply a record once: one replay of the program that made it."""
     for update, args in notes:
         update(*args)
+
+
+def warm_up_and_capture(body: Callable[[], Any], pool: Any, side: "torch.cuda.Stream"):
+    """Run ``body()`` once on the stream ``side``, then capture it into a
+    CUDA graph on ``side`` with its allocations in the graph memory pool
+    ``pool`` and this thread's accounting recorded.
+
+    The warm-up is a real call: its results and side effects are the
+    step's (the capture runs nothing), and it builds the kernel library,
+    cuBLAS's handles and workspaces on ``side`` before the capture.  Only
+    the warm-up's returned value outlives it; its temporaries are freed
+    before ``torch.cuda.graph`` empties the cache.  Returns (the warm-up's
+    value, the graph, the captured call's value, which every replay
+    rewrites, the record to :func:`replay` at each replay, the capture's
+    host ms).  A failed capture raises."""
+    current = torch.cuda.current_stream(side.device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        warm = body()
+    current.wait_stream(side)
+    side.synchronize()
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    with recording() as notes:
+        with torch.cuda.graph(graph, pool=pool, stream=side, capture_error_mode="thread_local"):
+            static = body()
+    return warm, graph, static, notes, (time.perf_counter() - t0) * 1e3

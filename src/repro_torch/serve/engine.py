@@ -48,7 +48,6 @@ overwrites those), so a state a fork shares is never written.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -146,25 +145,10 @@ class DecodeProgram:
         return self.logits
 
     def _warm_up_and_capture(self) -> torch.Tensor:
-        dev = self.engine.device
-        pool_handle, side = self.engine._capture_resources()
-        current = torch.cuda.current_stream(dev)
-        side.wait_stream(current)
-        # the warm-up is this step (its K/V writes and state updates are the
-        # real ones; a capture runs nothing), and it builds the kernel
-        # library, cuBLAS's handles and the SM-count cache before capture
-        with torch.cuda.stream(side):
-            logits = self.body()
-        current.wait_stream(side)
-        side.synchronize()
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with accounting.recording() as notes:
-            with torch.cuda.graph(graph, pool=pool_handle, stream=side,
-                                  capture_error_mode="thread_local"):
-                static = self.body()
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self.graph, self.logits, self.notes = graph, static, notes
+        # the warm-up is this step: its K/V writes and state updates are the
+        # real ones (a capture runs nothing)
+        logits, self.graph, self.logits, self.notes, self.capture_ms = (
+            accounting.warm_up_and_capture(self.body, *self.engine._capture_resources()))
         return logits
 
     def absorb(self, sessions: Sequence[PagedSession]) -> None:

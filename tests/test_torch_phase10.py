@@ -56,3 +56,12 @@ def test_phase10b_rehearsal_on_the_cpu():
     assert "device_busy_ms" not in out
     assert out["tokens"] == 256 and out["write_alone_bytes"] > 0
     assert out["write_stages"]["bytes"] > 0 and out["write_stages"]["digest_mb_s"] > 0
+
+
+def test_phase10b_child_failure_fails_the_phase():
+    """10b profiles the eager step in a fresh process; a process that fails
+    (here: no card to profile) fails the phase with its output."""
+    if torch.cuda.is_available():
+        pytest.skip("with a card the profiling process succeeds")
+    with pytest.raises(AssertionError, match="profiling process exited"):
+        chip_smoke.profile_eager_train_step()
