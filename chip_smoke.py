@@ -1353,6 +1353,23 @@ def _percentiles(ms) -> dict:
     return {"n": len(ms), "p50": float(np.percentile(ms, 50)), "p99": float(np.percentile(ms, 99))}
 
 
+def _last_search_trace() -> dict:
+    """The program's own record of the newest search (``repro_torch.trace``):
+    per span name its count and summed ms, and the run's counters."""
+    from repro_torch import trace
+
+    runs = [s.run for s in trace.snapshot()["spans"] if s.name == "search.run"]
+    if not runs:
+        return {}
+    snap = trace.snapshot(max(runs))
+    spans: dict = {}
+    for s in snap["spans"]:
+        n, ms = spans.get(s.name, (0, 0.0))
+        spans[s.name] = (n + 1, ms + (s.t1_ns - s.t0_ns) / 1e6)
+    return {"spans_ms": {k: [n, round(ms, 3)] for k, (n, ms) in sorted(spans.items())},
+            "counters": snap["counters"]}
+
+
 def run_search_path(
     device,
     *,
@@ -1535,8 +1552,7 @@ def run_decode_search(device, model, *, num_pages, page_size, max_pages, prompt_
             return mcts, {
                 "driver": name, "nodes": st.nodes, "iterations": st.iterations,
                 "wall_s": st.wall_s, "nodes_per_s": st.nodes / st.wall_s,
-                "time_restore_s": st.time_restore_s, "time_checkpoint_s": st.time_checkpoint_s,
-                "time_action_s": st.time_action_s, "time_eval_s": st.time_eval_s,
+                "trace": _last_search_trace(),
                 "restores": st.restores, "fast_restores": st.fast_restores,
                 "slow_restores": st.slow_restores, "forks": st.forks,
                 "checkpoints": st.checkpoints, "parallel_batches": st.parallel_batches,

@@ -65,6 +65,7 @@ from typing import (
 import numpy as np
 import torch
 
+from .. import trace
 from . import faults
 from ..kernels import ops as kops
 from .chunk_store import ChunkStore, chunk_digest
@@ -549,11 +550,12 @@ class DeltaDumpPipeline:
         """
         res = EncodeResult(entries={}, dirtied=0)
         parent_entries = parent_image.entries if parent_image is not None else {}
-        parent_rec = (
-            self.record_for(parent_image.image_id)
-            if parent_image is not None and use_base
-            else None
-        )
+        parent_rec = None
+        if parent_image is not None and use_base:
+            parent_rec = self.record_for(parent_image.image_id)
+            trace.count("dump.with_parent")
+            if parent_rec is None:      # the parent's generation left the cache
+                trace.count("dump.base_miss")
         try:
             return self._encode_with_parent(
                 gen, parent_entries, parent_rec, res, cancel=cancel, priority=priority

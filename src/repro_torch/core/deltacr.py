@@ -47,6 +47,7 @@ from typing import Any, Callable, Dict, List, Optional, Protocol, Set, Tuple, ru
 import numpy as np
 import torch
 
+from .. import trace
 from ..kernels._build import KernelError
 from . import faults
 from .chunk_store import ChunkStore, chunk_digest
@@ -926,9 +927,11 @@ class DeltaCR:
                     if parent_fut is not None and parent_ckpt is not None
                     else None
                 )
+                # the worker re-enters the caller's trace context, and its
+                # ``dump.queue`` span starts here
                 fut = self._dump_worker.submit(
                     self._do_dump, ckpt_id, ticket, dump_src, parent_fut,
-                    parent_ref, priority, cancel,
+                    parent_ref, priority, cancel, (trace.current(), time.perf_counter_ns()),
                 )
                 fut.add_done_callback(
                     lambda _f, c=ckpt_id: self._cancels.pop(c, None)
@@ -957,15 +960,25 @@ class DeltaCR:
         dump_src: ForkableState,
         parent_fut: Optional[Future],
         parent_ref,
-        priority: str = "bg",
-        cancel: Optional[threading.Event] = None,
+        priority: str,
+        cancel: threading.Event,
+        queued: Tuple[Tuple[Optional[int], Optional[int]], int],
     ) -> DumpImage:
-        try:
-            return self._dump_image(ckpt_id, ticket, dump_src, parent_fut, priority, cancel)
-        finally:
-            # lineage ref off: if the parent checkpoint was dropped while
-            # this dump ran, its chunks are returned here, not before
-            self.images.release(parent_ref)
+        """The dump on the worker; ``queued`` is the submitter's trace
+        context and submission time: ``dump.queue`` spans the wait behind
+        earlier dumps, ``dump.run`` the dump up to its commit."""
+        ctx, t_submit = queued
+        with trace.scope(*ctx):
+            trace.record("dump.queue", t_submit, ckpt=ckpt_id)
+            with trace.span("dump.run", ckpt=ckpt_id):
+                try:
+                    return self._dump_image(
+                        ckpt_id, ticket, dump_src, parent_fut, priority, cancel)
+                finally:
+                    # lineage ref off: if the parent checkpoint was dropped
+                    # while this dump ran, its chunks are returned here, not
+                    # before
+                    self.images.release(parent_ref)
 
     def _dump_image(
         self,
@@ -1411,7 +1424,15 @@ class DeltaCR:
         materialized base generation when available — then re-inject the
         rebuilt state as a template so future restores take the fast path.
         A kernel failure of an earlier async warm is raised here first.
+        The ``cr.restore`` span names the path; a slow one holds
+        ``cr.restore.image_wait`` and ``cr.restore.decode``.
         """
+        with trace.span("cr.restore", ckpt=ckpt_id) as sp:
+            state, path = self._restore(ckpt_id)
+            sp.set(path=path)
+            return state, path
+
+    def _restore(self, ckpt_id: int) -> Tuple[ForkableState, str]:
         self._raise_warm_error()
         with self._lock:
             template = self._templates.get(ckpt_id)
@@ -1430,7 +1451,8 @@ class DeltaCR:
             fut = self._images.get(ckpt_id)
         if fut is None:
             raise KeyError(f"checkpoint {ckpt_id}: no template and no dump image")
-        image = fut.result()  # may wait for the background dump to land
+        with trace.span("cr.restore.image_wait", ckpt=ckpt_id):
+            image = fut.result()  # may wait for the background dump to land
         if self.restore_fn is None:
             raise RuntimeError("slow-path restore requires restore_fn")
         # Decode under dependent references: a concurrent drop of this
@@ -1441,14 +1463,15 @@ class DeltaCR:
             raise KeyError(f"checkpoint {ckpt_id}: image was dropped")
         parent_ref = self.images.acquire_image(image.parent_id)
         try:
-            if self.pipeline is not None:
-                parent_image = self.images.get(image.parent_id)
-                payload = self.pipeline.decode(image, parent_image)
-            else:
-                payload = {
-                    name: read_meta_array(self.store, meta)
-                    for name, meta in image.entries.items()
-                }
+            with trace.span("cr.restore.decode", ckpt=ckpt_id):
+                if self.pipeline is not None:
+                    parent_image = self.images.get(image.parent_id)
+                    payload = self.pipeline.decode(image, parent_image)
+                else:
+                    payload = {
+                        name: read_meta_array(self.store, meta)
+                        for name, meta in image.entries.items()
+                    }
         finally:
             self.images.release(parent_ref)
             self.images.release(image_ref)

@@ -53,6 +53,7 @@ import threading
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Set
 
+from .. import trace
 from .delta_pipeline import mark_clean
 from .deltafs import LayerStore, NamespaceView
 from .image_store import ImageRef
@@ -127,6 +128,10 @@ class SandboxTree:
         """
         if n < 1:
             raise ValueError("fork width must be >= 1")
+        with trace.span("tree.fork", ckpt=ckpt_id):
+            return self._fork(ckpt_id, n)
+
+    def _fork(self, ckpt_id: int, n: int) -> List[Sandbox]:
         # Validate and pin under the lock; run the (possibly blocking)
         # template restores and LW replays *outside* it so concurrent
         # workers' forks never convoy behind one slow-path restore.  The

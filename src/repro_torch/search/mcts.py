@@ -39,6 +39,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Protocol, Sequence, Tuple
 
+from .. import trace
 from ..core import StateManager, Sandbox, SandboxTree, reachability_gc
 
 __all__ = ["MCTSConfig", "AgentTask", "MCTS", "MCTSStats"]
@@ -90,10 +91,6 @@ class MCTSStats:
     slow_restores: int = 0
     forks: int = 0                  # parallel driver: sandbox forks
     parallel_batches: int = 0
-    time_restore_s: float = 0.0
-    time_checkpoint_s: float = 0.0
-    time_action_s: float = 0.0
-    time_eval_s: float = 0.0
     best_value: float = 0.0
     nodes: int = 0
     wall_s: float = 0.0
@@ -206,11 +203,14 @@ class MCTS:
 
     # ------------------------------------------------------------------ run
     def run(self) -> MCTSStats:
+        """One search; its spans and counts carry a run id of their own
+        (``repro_torch.trace``), dumps that commit after it returns too."""
         t_run = time.perf_counter()
-        if self.cfg.parallel_leaves > 1:
-            out = self._run_parallel()
-        else:
-            out = self._run_serial()
+        with trace.scope(trace.new_run()), trace.span("search.run"):
+            if self.cfg.parallel_leaves > 1:
+                out = self._run_parallel()
+            else:
+                out = self._run_serial()
         out.wall_s = time.perf_counter() - t_run
         return out
 
@@ -223,9 +223,7 @@ class MCTS:
     def _run_serial(self) -> MCTSStats:
         cfg, sm, task, st = self.cfg, self.sm, self.task, self.stats
 
-        t0 = time.perf_counter()
         root = sm.checkpoint(dump=cfg.dump)
-        st.time_checkpoint_s += time.perf_counter() - t0
         st.checkpoints += 1
         self._register(root, 0, cfg.seed)
         deadline = self._deadline()
@@ -238,9 +236,7 @@ class MCTS:
             target = self._select(root)
             # 2. rollback to the selected node (the paper's critical path)
             if sm.current != target:
-                t0 = time.perf_counter()
                 mode = sm.restore(target)
-                st.time_restore_s += time.perf_counter() - t0
                 st.restores += 1
                 if mode.startswith("fast"):
                     st.fast_restores += 1
@@ -248,9 +244,7 @@ class MCTS:
                     st.slow_restores += 1
             node = sm.node(target)
             if node.terminal:
-                t0 = time.perf_counter()
                 value = task.evaluate(sm.sandbox)
-                st.time_eval_s += time.perf_counter() - t0
                 self._backprop(target, value)
                 continue
             # 3. expansion: apply one untried action, checkpoint the child
@@ -262,28 +256,22 @@ class MCTS:
             action = actions.pop(0)
             if not actions:
                 node.expandable = False
-            t0 = time.perf_counter()
             task.apply_action(sm.sandbox, action)
-            st.time_action_s += time.perf_counter() - t0
 
             lw = cfg.use_lightweight and task.is_readonly(action)
-            t0 = time.perf_counter()
             child = sm.checkpoint(
                 lightweight=lw, actions=(action,) if lw else (), dump=cfg.dump
             )
-            st.time_checkpoint_s += time.perf_counter() - t0
             st.checkpoints += 1
             if lw:
                 st.lw_checkpoints += 1
             self._register(child, self.depth[target] + 1, cfg.seed + it + 1)
 
             # 4. evaluation under value-time isolation
-            t0 = time.perf_counter()
             if cfg.value_isolation:
                 value = sm.isolated_eval(lambda sb: task.evaluate(sb))
             else:
                 value = task.evaluate(sm.sandbox)
-            st.time_eval_s += time.perf_counter() - t0
             st.best_value = max(st.best_value, value)
 
             # 5. backprop
@@ -300,12 +288,11 @@ class MCTS:
         tree = self.tree if self.tree is not None else SandboxTree(sm)
         self.tree = tree
 
-        t0 = time.perf_counter()
         root = sm.checkpoint(dump=cfg.dump)
-        st.time_checkpoint_s += time.perf_counter() - t0
         st.checkpoints += 1
         self._register(root, 0, cfg.seed)
         deadline = self._deadline()
+        run = trace.current()[0]
 
         pool = ThreadPoolExecutor(
             max_workers=cfg.parallel_leaves, thread_name_prefix="mcts-leaf"
@@ -329,33 +316,35 @@ class MCTS:
                             node.expandable = False
                     self._virtual_loss(target, +1)
                     picks.append((target, action))
-                # 2. fork + explore concurrently
-                futs = [
-                    pool.submit(self._explore_leaf, tree, t, a, cfg.seed + it + i + 1)
-                    for i, (t, a) in enumerate(picks)
-                ]
-                # Drain EVERY future before acting on any error: virtual
-                # losses must all revert and every successful worker's child
-                # must be registered, or the tree would keep inflated visit
-                # counts and unreachable-but-GC-protected orphan nodes.
-                errors: List[BaseException] = []
-                for (target, action), fut in zip(picks, futs):
-                    try:
-                        child, value, actions, terminal = fut.result()
-                    except BaseException as exc:
+                # 2. fork + explore concurrently; leaf ``it + i`` of the run
+                with trace.span("search.batch", leaves=batch):
+                    futs = [
+                        pool.submit(self._explore_leaf, tree, t, a, cfg.seed + it + i + 1,
+                                    (run, it + i))
+                        for i, (t, a) in enumerate(picks)
+                    ]
+                    # Drain EVERY future before acting on any error: virtual
+                    # losses must all revert and every successful worker's child
+                    # must be registered, or the tree would keep inflated visit
+                    # counts and unreachable-but-GC-protected orphan nodes.
+                    errors: List[BaseException] = []
+                    for (target, action), fut in zip(picks, futs):
+                        try:
+                            child, value, actions, terminal = fut.result()
+                        except BaseException as exc:
+                            self._virtual_loss(target, -1)
+                            errors.append(exc)
+                            continue
                         self._virtual_loss(target, -1)
-                        errors.append(exc)
-                        continue
-                    self._virtual_loss(target, -1)
-                    st.iterations += 1
-                    st.best_value = max(st.best_value, value)
-                    if child is None:        # evaluation-only visit
-                        self._backprop(target, value)
-                        continue
-                    self._register_explored(
-                        child, self.depth[target] + 1, actions, terminal
-                    )
-                    self._backprop(child, value)
+                        st.iterations += 1
+                        st.best_value = max(st.best_value, value)
+                        if child is None:        # evaluation-only visit
+                            self._backprop(target, value)
+                            continue
+                        self._register_explored(
+                            child, self.depth[target] + 1, actions, terminal
+                        )
+                        self._backprop(child, value)
                 if errors:
                     raise errors[0]
                 it += batch
@@ -375,6 +364,17 @@ class MCTS:
         return st
 
     def _explore_leaf(
+        self, tree: SandboxTree, target: int, action: Optional[Any], seed: int,
+        ctx: Tuple[Optional[int], int],
+    ) -> Tuple[Optional[int], float, List[Any], bool]:
+        """One leaf on a worker thread, under the driver's ``(run, leaf)``:
+        the ``search.leaf`` span names the child it checkpointed."""
+        with trace.scope(*ctx), trace.span("search.leaf") as leaf:
+            out = self._explore(tree, target, action, seed)
+            leaf.set(ckpt=out[0])
+            return out
+
+    def _explore(
         self, tree: SandboxTree, target: int, action: Optional[Any], seed: int
     ) -> Tuple[Optional[int], float, List[Any], bool]:
         """Worker body: fork → act → checkpoint → evaluate → release.
@@ -398,26 +398,18 @@ class MCTS:
             sandbox.sched_sid = sched_sid
         try:
             if action is None:
-                t0 = time.perf_counter()
-                value = task.evaluate(sandbox)
-                with self._stats_lock:
-                    st.time_eval_s += time.perf_counter() - t0
-                return None, value, [], False
+                return None, task.evaluate(sandbox), [], False
 
-            t0 = time.perf_counter()
             task.apply_action(sandbox, action)
-            t_action = time.perf_counter() - t0
 
             # Read-only actions route to metadata-only LW markers exactly
             # like the serial driver (§6.3.3): no layer freeze, no dump — a
             # later fork/restore of the node replays the action.
             lw = cfg.use_lightweight and task.is_readonly(action)
-            t0 = time.perf_counter()
             if lw:
                 child = tree.checkpoint_lightweight(sandbox.sandbox_id, (action,))
             else:
                 child = tree.checkpoint(sandbox.sandbox_id, dump=cfg.dump)
-            t_ckpt = time.perf_counter() - t0
 
             # Registration data (terminal flag, untried actions) must be
             # derived from the frozen checkpoint state, BEFORE evaluate()'s
@@ -425,7 +417,6 @@ class MCTS:
             # which registers the child and only then evaluates under
             # isolation.  The evaluation's pollution then dies with the fork.
             try:
-                t0 = time.perf_counter()
                 terminal = (
                     task.is_terminal(sandbox)
                     or self.depth[target] + 1 >= cfg.max_depth
@@ -434,7 +425,6 @@ class MCTS:
                 if not terminal:
                     actions = list(task.propose_actions(sandbox, seed))[: cfg.expand_width]
                 value = task.evaluate(sandbox)
-                t_eval = time.perf_counter() - t0
             except BaseException:
                 # the adopted child would otherwise be an orphan the driver
                 # never registers but GC protects forever — reclaim it
@@ -446,9 +436,6 @@ class MCTS:
                 raise
 
             with self._stats_lock:
-                st.time_action_s += t_action
-                st.time_checkpoint_s += t_ckpt
-                st.time_eval_s += t_eval
                 st.checkpoints += 1
                 if lw:
                     st.lw_checkpoints += 1

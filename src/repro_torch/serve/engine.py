@@ -47,12 +47,14 @@ overwrites those), so a state a fork shares is never written.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..dist.sharding import current_act_ctx
 from ..kernels import accounting
 from ..models.model import RECURRENT_KINDS, Model, stacked_cache_entry
@@ -225,28 +227,33 @@ class Engine:
         # step of this width overwrites the program's outputs.  Every
         # session's page motion is planned first, then committed through ONE
         # transactional materialize: a failure rolls every plan back before
-        # any decode math runs.
-        with self.pool.lock:
-            plans: List[Any] = []
-            try:
+        # any decode math runs.  The ``engine.step`` span runs from the
+        # lock's acquisition to the last sampled token; ``engine.run`` is the
+        # replay and the logits' copy, which waits for the device.
+        with contextlib.ExitStack() as step:
+            with self.pool.lock:
+                step.enter_context(trace.span("engine.step"))
+                plans: List[Any] = []
+                try:
+                    for s in sessions:
+                        plans.append(s.plan_writable(extra_tokens=1))
+                except BaseException:
+                    self.pool.discard_plans(plans)
+                    raise
+                self.pool.materialize(plans)
+                prog = self._get_decode(len(sessions))
+                prog.stage(sessions)
+                with trace.span("engine.run"):
+                    logits_np = prog.run().cpu().numpy()
+                prog.absorb(sessions)
                 for s in sessions:
-                    plans.append(s.plan_writable(extra_tokens=1))
-            except BaseException:
-                self.pool.discard_plans(plans)
-                raise
-            self.pool.materialize(plans)
-            prog = self._get_decode(len(sessions))
-            prog.stage(sessions)
-            logits_np = prog.run().cpu().numpy()
-            prog.absorb(sessions)
-            for s in sessions:
-                s.seq_len += 1
-        out = []
-        for i, s in enumerate(sessions):
-            tok = self._sample(s, logits_np[i])
-            s.tokens.append(tok)
-            s.extras["last_logits"] = logits_np[i]
-            out.append(tok)
+                    s.seq_len += 1
+            out = []
+            for i, s in enumerate(sessions):
+                tok = self._sample(s, logits_np[i])
+                s.tokens.append(tok)
+                s.extras["last_logits"] = logits_np[i]
+                out.append(tok)
         self.decode_steps += 1
         return out
 

@@ -39,13 +39,13 @@ grid's shape, and a new page changes it.
 """
 from __future__ import annotations
 
-import threading
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from .. import trace
 from ..configs.base import ModelConfig
 from ..core import faults
 from ..core.convert import tensor_from_numpy
@@ -179,7 +179,8 @@ class PagePool:
         self.refs = np.zeros((num_pages,), np.int64)
         self.refs[0] = 1                       # page 0 reserved (filler)
         self._free: List[int] = list(range(num_pages - 1, 0, -1))
-        self._lock = threading.RLock()
+        # contended acquisitions are ``kvpool.lock_wait`` spans
+        self._lock = trace.TracedLock("kvpool.lock_wait")
         self.stats = PoolStats()
         # re-read every materialized dst page against its src and roll the
         # batch back on mismatch (bitrot on the copy path); costs a device
@@ -192,7 +193,7 @@ class PagePool:
         )
 
     @property
-    def lock(self) -> threading.RLock:
+    def lock(self) -> trace.TracedLock:
         """Pool mutation lock (reentrant).  Holders get exclusive access to
         the device pool tensors *and* the host bookkeeping: the engine holds
         it over each step's read→decode→write window, so an async-warm
@@ -427,8 +428,9 @@ class PagePool:
         return out
 
     def scatter_pages(self, pages: np.ndarray, payload: Dict[str, Any]) -> None:
-        """Inverse of ``gather_pages_device`` (slow-path restore)."""
-        with self._lock:
+        """Inverse of ``gather_pages_device`` (slow-path restore): the
+        upload and the ``index_copy_`` are the ``kvpool.scatter`` span."""
+        with self._lock, trace.span("kvpool.scatter"):
             idx = torch.as_tensor(np.asarray(pages, np.int64), device=self.device)
             for skey, tag in self.attn_tags:
                 for pools, kv in ((self.pools_k, "k"), (self.pools_v, "v")):

@@ -45,6 +45,7 @@ from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FuturesTimeoutError
 from typing import Dict, List, Optional, Tuple
 
+from .. import trace
 from ..core.deltacr import DeltaCR
 from ..core.persist import PersistencePlane
 from ..core.persist import recover as recover_state
@@ -472,17 +473,18 @@ class Scheduler:
         w_s = self.cfg.batch_window_ms / 1e3
         if w_s <= 0:
             return
-        deadline = time.monotonic() + w_s
-        while time.monotonic() < deadline:
-            with self._lock:
-                wanting = sum(
-                    1
-                    for h in self.handles.values()
-                    if h.state == "active" and h.want > 0
-                )
-            if wanting >= self.cfg.max_batch:
-                return
-            time.sleep(w_s / 8)
+        with trace.span("sched.coalesce"):
+            deadline = time.monotonic() + w_s
+            while time.monotonic() < deadline:
+                with self._lock:
+                    wanting = sum(
+                        1
+                        for h in self.handles.values()
+                        if h.state == "active" and h.want > 0
+                    )
+                if wanting >= self.cfg.max_batch:
+                    return
+                time.sleep(w_s / 8)
 
     def _pending_wants(self) -> bool:
         with self._lock:
