@@ -32,8 +32,11 @@ hash + store           O(S)            O(Δ), hashed exactly once
 =====================  =============  ==========================
 
 Generations are retained in a small LRU (each anchored by the dump's own
-fork, so CoW keeps the viewed pages immutable); a cache miss falls back to
-the digest path, which is still O(S) hashing but O(Δ) store writes.
+fork, so CoW keeps the viewed pages immutable).  A dump whose checkpoint
+found the parent's template live also carries a fork of it, which serves
+as its base whether or not the cache kept the parent's generation; only a
+dump with neither falls back to the digest path, which is still O(S)
+hashing but O(Δ) store writes.
 
 Grids are numpy arrays (host state: an exact numpy compare and scatter)
 or torch tensors (device state: the CUDA kernels on the card, their plain
@@ -530,8 +533,21 @@ class DeltaDumpPipeline:
         cancel: Optional[threading.Event] = None,
         priority: str = "bg",
         use_base: bool = True,
+        parent_state: Optional[Any] = None,
     ) -> EncodeResult:
         """Build the image entries for one generation (dump-worker thread).
+
+        ``parent_state``, when given, is a state bit-identical to
+        ``parent_image``: the fork of the parent's template that
+        ``DeltaCR.checkpoint`` carries to the dump.  Its generation is
+        never registered, so it takes no slot of the cache.  A flat key
+        diffs against the fork's view first, then the cache's record for
+        the parent image: the fork's grid is a gather on the key's own
+        device, where a record rebuilt by a decode holds a host grid that
+        would be uploaded whole.  A sharded key takes the cache's record
+        first, whose parts were placed under the key's plan, then the
+        fork's.  Without either, the key drains in full.  Every base gives
+        the image the full drain gives: all are the parent image's bytes.
 
         When the pipeline owns a :class:`ChunkStreamEngine` and the plan is
         large enough to split into windows, the per-tensor work streams
@@ -551,19 +567,25 @@ class DeltaDumpPipeline:
         res = EncodeResult(entries={}, dirtied=0)
         parent_entries = parent_image.entries if parent_image is not None else {}
         parent_rec = None
+        carried: Dict[str, Any] = {}
         if parent_image is not None and use_base:
-            parent_rec = self.record_for(parent_image.image_id)
             trace.count("dump.with_parent")
-            if parent_rec is None:      # the parent's generation left the cache
+            parent_rec = self.record_for(parent_image.image_id)
+            if parent_state is not None:
+                carried = parent_state.delta_generation(self.store.chunk_bytes).views
+                trace.count("dump.parent_fork")
+            elif parent_rec is None:    # no base at all: every dirty key drains in full
                 trace.count("dump.base_miss")
         try:
             return self._encode_with_parent(
-                gen, parent_entries, parent_rec, res, cancel=cancel, priority=priority
+                gen, parent_entries, parent_rec, carried, res, cancel=cancel, priority=priority
             )
         finally:
             # device grids materialized for this diff are O(state) on-device
             # copies — free them; the anchors re-gather lazily next time
             for view in gen.views.values():
+                view.drop_cached_device_grid()
+            for view in carried.values():
                 view.drop_cached_device_grid()
             if parent_rec is not None:
                 for view in parent_rec.views.values():
@@ -575,6 +597,7 @@ class DeltaDumpPipeline:
         gen: DeltaGeneration,
         parent_entries: Dict[str, TensorMeta],
         parent_rec: Optional[_GenRecord],
+        carried: Dict[str, Any],
         res: "EncodeResult",
         *,
         cancel: Optional[threading.Event] = None,
@@ -595,12 +618,14 @@ class DeltaDumpPipeline:
                 res.entries[key] = pm
                 res.clean_keys += 1
                 continue
-            base = parent_rec.views.get(key) if parent_rec is not None else None
+            cached = parent_rec.views.get(key) if parent_rec is not None else None
             if hasattr(view, "parts"):   # dist.shard_dump.ShardedView
+                base = cached if cached is not None else carried.get(key)
                 splan = self._plan_sharded_key(key, view, pm if pm_ok else None, base)
                 sharded[key] = splan
                 tasks.extend(splan.tasks)
             else:
+                base = carried.get(key, cached)
                 tasks.append(self._plan_key(key, view, pm if pm_ok else None, base))
 
         items = [t.as_window_item() for t in tasks]
@@ -723,13 +748,17 @@ class DeltaDumpPipeline:
         return _KeyTask(key=key, weight=weight, encode=encode, drain=drain, commit=commit)
 
     @staticmethod
-    def _padded_pair(old_grid, new_grid, K: int, K2: int):
-        """The first K rows of both grids on one device, zero-padded to K2
-        rows: the identical pad rows can never read as dirty."""
+    def _padded_pair(old_grid, new_grid, K: int, K2: int, cap: int):
+        """The first K rows of both grids on one device.  The capacity is
+        planned on K2 rows; the grids are zero-padded to K2 only where it
+        exceeds K.  Below that the identical pad rows, which can never read
+        as dirty, change no output, and the pad would copy both grids
+        whole: 2.5 GiB of transient device memory for one 516-page K/V
+        grid of qwen3-14b."""
         dev = _grid_device(new_grid, old_grid)
         old_t = _as_grid(old_grid, dev)[:K]
         new_t = _as_grid(new_grid, dev)[:K]
-        if K2 != K:
+        if cap > K:
             pad = (0, 0, 0, K2 - K)
             old_t = torch.nn.functional.pad(old_t, pad)
             new_t = torch.nn.functional.pad(new_t, pad)
@@ -738,9 +767,9 @@ class DeltaDumpPipeline:
     def _plan_device_kernel(
         self, key, view, pm, old_grid, new_grid, K: int, weight: int
     ) -> _KeyTask:
-        # pow2-pad the row count so the fixed capacity only takes
+        # plan on the pow2 row count so the fixed capacity only takes
         # O(log N) values as a KV cache grows (the JAX package pads to keep
-        # its jit cache small; the same padding keeps the plans identical)
+        # its jit cache small; the same count keeps the plans identical)
         K2 = 1 << (K - 1).bit_length()
         cap = self._capacity(K2)
         if self.fused and cap * view.chunk_bytes <= self.FUSED_VMEM_BYTES:
@@ -749,7 +778,7 @@ class DeltaDumpPipeline:
             )
 
         def encode():
-            old_t, new_t = self._padded_pair(old_grid, new_grid, K, K2)
+            old_t, new_t = self._padded_pair(old_grid, new_grid, K, K2, cap)
             data, idx, count = kops.delta_encode(old_t, new_t, cap)
             # async: start the small control copies now; the rows are
             # fetched in drain as an exact [:count] slice
@@ -780,7 +809,7 @@ class DeltaDumpPipeline:
         re-fetches, exactly like an injected drain fault."""
 
         def encode():
-            old_t, new_t = self._padded_pair(old_grid, new_grid, K, K2)
+            old_t, new_t = self._padded_pair(old_grid, new_grid, K, K2, cap)
             data, idx, count, sums = kops.fused_encode(old_t, new_t, cap)
             # start the small control copies (idx, count, sums) now so
             # drain can classify at once; the rows follow as a [:count]
@@ -949,7 +978,7 @@ class DeltaDumpPipeline:
                     tuple(view.plan.tile), cap,
                 )
                 return data, None, kops.start_host_fetch(idx, count)
-            old, new = self._padded_pair(base_fn(), part.grid, K, K2)
+            old, new = self._padded_pair(base_fn(), part.grid, K, K2, cap)
             if use_fused:
                 data, idx, count, sums = kops.fused_encode(old, new, cap)
             else:

@@ -887,7 +887,9 @@ class DeltaCR:
     ) -> None:
         """Fork a template at the quiesce point and submit the async dump.
 
-        Synchronous work is the fork only (the paper's ~9 ms stash fork);
+        Synchronous work is the forks only (the paper's ~9 ms stash fork):
+        the template, the dump's own source, and, where the parent's
+        template is live, a fork of it that the dump diffs against;
         serialization runs on the background worker, masked by inference.
 
         Transactional: a template-fork failure raises here with nothing
@@ -914,6 +916,22 @@ class DeltaCR:
                 # queue is single-worker FIFO, so the parent dump has always
                 # completed by the time this task runs (never blocks).
                 parent_fut = self._images.get(parent_ckpt) if parent_ckpt is not None else None
+                # The parent's own state as a diff base for the dump: a fork
+                # of its template, bit-identical to the parent image, that
+                # outlives the template's LRU slot and the pipeline's cache
+                # while the dump waits in the queue.  Released on every exit
+                # of the dump (see _do_dump).
+                parent_fork = None
+                parent_template = (
+                    self._templates.get(parent_ckpt) if parent_fut is not None else None
+                )
+                if (
+                    parent_template is not None
+                    and self.dump_mode in ("auto", "delta")
+                    and self.pipeline is not None
+                    and hasattr(parent_template, "delta_generation")
+                ):
+                    parent_fork = parent_template.fork()
                 cancel = threading.Event()
                 self._cancels[ckpt_id] = cancel
                 ticket = self.images.begin(ckpt_id)
@@ -931,7 +949,8 @@ class DeltaCR:
                 # ``dump.queue`` span starts here
                 fut = self._dump_worker.submit(
                     self._do_dump, ckpt_id, ticket, dump_src, parent_fut,
-                    parent_ref, priority, cancel, (trace.current(), time.perf_counter_ns()),
+                    parent_ref, parent_fork, priority, cancel,
+                    (trace.current(), time.perf_counter_ns()),
                 )
                 fut.add_done_callback(
                     lambda _f, c=ckpt_id: self._cancels.pop(c, None)
@@ -960,24 +979,32 @@ class DeltaCR:
         dump_src: ForkableState,
         parent_fut: Optional[Future],
         parent_ref,
+        parent_fork: Optional[ForkableState],
         priority: str,
         cancel: threading.Event,
         queued: Tuple[Tuple[Optional[int], Optional[int]], int],
     ) -> DumpImage:
-        """The dump on the worker; ``queued`` is the submitter's trace
-        context and submission time: ``dump.queue`` spans the wait behind
-        earlier dumps, ``dump.run`` the dump up to its commit."""
+        """The dump on the worker; ``parent_fork`` is the fork of the
+        parent's template that the checkpoint carried (or None), a diff base
+        beside the pipeline's cache (``DeltaDumpPipeline.encode_generation``).
+        ``queued`` is the submitter's
+        trace context and submission time: ``dump.queue`` spans the wait
+        behind earlier dumps, ``dump.run`` the dump up to its commit."""
         ctx, t_submit = queued
         with trace.scope(*ctx):
             trace.record("dump.queue", t_submit, ckpt=ckpt_id)
             with trace.span("dump.run", ckpt=ckpt_id):
                 try:
                     return self._dump_image(
-                        ckpt_id, ticket, dump_src, parent_fut, priority, cancel)
+                        ckpt_id, ticket, dump_src, parent_fut, parent_fork, priority, cancel)
                 finally:
-                    # lineage ref off: if the parent checkpoint was dropped
-                    # while this dump ran, its chunks are returned here, not
-                    # before
+                    # every exit (commit, cancel, failure, a killed worker)
+                    # gives back the carried fork's pages before the future
+                    # resolves; then the lineage ref goes: if the parent
+                    # checkpoint was dropped while this dump ran, its chunks
+                    # are returned here, not before
+                    if parent_fork is not None:
+                        parent_fork.release()
                     self.images.release(parent_ref)
 
     def _dump_image(
@@ -986,6 +1013,7 @@ class DeltaCR:
         ticket: DumpTicket,
         dump_src: ForkableState,
         parent_fut: Optional[Future],
+        parent_fork: Optional[ForkableState],
         priority: str,
         cancel: Optional[threading.Event],
     ) -> DumpImage:
@@ -1006,7 +1034,14 @@ class DeltaCR:
         t0 = time.perf_counter()
         bytes_before = self.store.stats.bytes_written
         try:
-            out = self._encode_with_recovery(ckpt_id, dump_src, parent, priority, cancel)
+            # the carried fork serves as a base only where the parent image
+            # came through the pipeline (the images its dump registers): a
+            # digest or legacy image's entries are laid out otherwise, and
+            # against them the dump drains in full as before
+            piped = parent is not None and parent.mode in ("delta", "copy")
+            out = self._encode_with_recovery(
+                ckpt_id, dump_src, parent, priority, cancel,
+                parent_fork if piped else None)
         except StreamCancelled:
             # dropped mid-dump (drop_checkpoint): the pipeline already rolled
             # back every chunk reference; the dump fork is all that remains
@@ -1110,6 +1145,7 @@ class DeltaCR:
         parent: Optional[DumpImage],
         priority: str,
         cancel: Optional[threading.Event],
+        parent_fork: Optional[ForkableState],
     ) -> _EncodeOutcome:
         """Encode with bounded retries, a per-dump deadline, and graceful
         degradation: primary path (delta pipeline, full-grid copy, or digest)
@@ -1162,7 +1198,7 @@ class DeltaCR:
                     choice,
                     lambda: self._delta_attempt(
                         dump_src, parent, priority, cancel, deadline,
-                        use_base=use_base,
+                        use_base=use_base, parent_fork=parent_fork,
                     ),
                 )
             # else: degraded — go straight to the legacy full path below,
@@ -1261,6 +1297,7 @@ class DeltaCR:
         deadline: Optional[float],
         *,
         use_base: bool = True,
+        parent_fork: Optional[ForkableState] = None,
     ) -> _EncodeOutcome:
         gen = dump_src.delta_generation(self.store.chunk_bytes)  # type: ignore[attr-defined]
         deadline_evt: Optional[threading.Event] = None
@@ -1282,7 +1319,7 @@ class DeltaCR:
         try:
             res = self.pipeline.encode_generation(  # type: ignore[union-attr]
                 gen, parent, cancel=eff_cancel, priority=priority,
-                use_base=use_base,
+                use_base=use_base, parent_state=parent_fork,
             )
         except StreamCancelled:
             if cancel is not None and cancel.is_set():

@@ -615,3 +615,85 @@ def test_cuda_checkpoint_restore_is_bit_exact(cuda):
             g = got[path]
             assert g.device.type == "cuda" and g.dtype == w.dtype and g.shape == w.shape
             assert torch.equal(g.view(torch.int32), w.view(torch.int32)), path
+
+
+def _carried_fork_dump(device, config, pages, psz=16):
+    """A session of ``pages`` pages (R), two children of it (P, S) written
+    a few positions each, S's dump pushing P's generation out of a cache of
+    one, then P's child C: its dump diffs against the fork of P's template
+    that its checkpoint carries.  Returns the bytes C's dump fetched, the
+    bytes of C's dirty pages, the grids' padded row count, and whether C
+    restored slow equals C bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.delta_pipeline import mark_clean
+    from repro_torch.serve import PagedSession, PagePool
+
+    pool = PagePool(get_config(config), num_pages=2 * pages + 16, page_size=psz,
+                    max_pages_per_session=pages + 8, device=device)
+    gen = torch.Generator(device=device).manual_seed(pages)
+    for pools in (pool.pools_k, pool.pools_v):
+        for t in pools["stage0"].values():
+            t.copy_(torch.randn(t.shape, generator=gen, device=device).to(t.dtype))
+
+    def append(sess, n):
+        sess.ensure_writable(extra_tokens=n)
+        for pos in range(sess.seq_len, sess.seq_len + n):
+            page, slot = int(sess.table[pos // psz]), pos % psz
+            for pools in (pool.pools_k, pool.pools_v):
+                for t in pools["stage0"].values():
+                    row = t[:, page, slot]
+                    row.copy_(torch.randn(row.shape, generator=gen, device=device).to(t.dtype))
+        sess.seq_len += n
+        sess.tokens += [7] * n
+        sess.extras["last_logits"] = torch.randn(1024, generator=gen, device=device)
+
+    cr = DeltaCR(restore_fn=lambda p: PagedSession.restore_from_payload(pool, p),
+                 policy=DumpPolicy(mode="delta", max_generations=1), async_warm=False)
+    try:
+        root = PagedSession(pool)
+        root.ensure_writable(extra_tokens=pages * psz - 7)
+        root.seq_len = pages * psz - 7
+        cr.checkpoint(root, 1, None)
+        for c in (2, 3):
+            s, _ = cr.restore(1)
+            mark_clean(s, 1)
+            append(s, 3)
+            cr.checkpoint(s, c, 1)
+            cr.wait_dumps()
+            s.release()
+        assert 2 not in cr.pipeline.anchored_ids()
+        child, _ = cr.restore(2)
+        mark_clean(child, 2)
+        append(child, 5)
+        d0 = cr.pipeline.d2h_bytes
+        cr.checkpoint(child, 4, 2)
+        cr.wait_dumps()
+        fetched = cr.pipeline.d2h_bytes - d0
+        assert cr.dump_future(4).result().mode == "delta"
+        dirty = len({pos // psz for pos in range(child.seq_len - 5, child.seq_len)})
+        cr.evict_template(4)
+        slow, path = cr.restore(4)
+        assert path == "slow"
+        same = all(
+            torch.equal(pools["stage0"][tag][:, child.active_pages()],
+                        pools["stage0"][tag][:, slow.active_pages()])
+            for pools in (pool.pools_k, pool.pools_v) for tag in pools["stage0"]
+        ) and slow.tokens == child.tokens
+        slow.release()
+        child.release()
+        padded = 1 << (child.n_pages - 1).bit_length()
+        return fetched, dirty * pool.bytes_per_page(), padded, same
+    finally:
+        cr.shutdown()
+
+
+@pytest.mark.gpu
+def test_cuda_child_dump_after_its_parents_generation_left_the_cache(cuda):
+    """A child's dump after its parent's generation left the cache moves
+    its dirty pages' bytes, not the session: its two grids (K and V) each
+    add only their control words (at most an 8-byte index per padded row
+    and a count), and the extras stay off ``d2h_bytes``.  The image restores to
+    the child's K/V bit for bit."""
+    fetched, dirty_bytes, padded, same = _carried_fork_dump(cuda, "qwen3-14b", 300)
+    assert same
+    assert 0 < fetched <= dirty_bytes + 2 * (8 * padded + 8)
