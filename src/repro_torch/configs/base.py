@@ -73,6 +73,9 @@ class ModelConfig:
     window: Optional[int] = None                 # sliding window for attn_local
     rope_theta: float = 10000.0
     mrope_sections: Optional[Tuple[int, int, int]] = None
+    # port-only options (jamba), each off by default; kept out of the repr,
+    # which stays the JAX package's
+    rope: bool = dataclasses.field(default=True, repr=False)   # False: no positional encoding
     attn_shard: str = "kv"                       # "kv" | "group": which head axis TP shards
     # mlp / norm
     activation: str = "silu"                     # silu (SwiGLU) | gelu (GeGLU)
@@ -84,10 +87,19 @@ class ModelConfig:
     top_k: int = 0
     moe_d_ff: int = 0
     capacity_factor: float = 1.25
+    # port-only: False keeps the top-k weights as the softmax gave them;
+    # dropless: no assignment ever skips its expert; experts_held: the
+    # experts this chip holds, a range [lo, hi) of the router's n_experts
+    # ids (expert parallelism's share), None for all of them
+    moe_renormalize: bool = dataclasses.field(default=True, repr=False)
+    moe_dropless: bool = dataclasses.field(default=False, repr=False)
+    experts_held: Optional[Tuple[int, int]] = dataclasses.field(default=None, repr=False)
     # mamba
     mamba_d_state: int = 16
     mamba_d_conv: int = 4
     mamba_expand: int = 2
+    # port-only: RMSNorm dt, B and C after x_proj (jamba)
+    mamba_inner_norm: bool = dataclasses.field(default=False, repr=False)
     # input frontend: "tokens" or "embeddings" (audio/vlm stub frontends)
     input_mode: str = "tokens"
     # dtypes
@@ -111,6 +123,14 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    @property
+    def n_held_experts(self) -> int:
+        """The experts whose weights this chip holds."""
+        if self.experts_held is None:
+            return self.n_experts
+        lo, hi = self.experts_held
+        return hi - lo
 
     def sublayer_kinds(self) -> set:
         kinds = set()
@@ -136,6 +156,9 @@ class ModelConfig:
                     assert sub in VALID_SUBLAYERS, sub
         if self.is_moe:
             assert "moe" in self.sublayer_kinds()
+        if self.experts_held is not None:
+            lo, hi = self.experts_held
+            assert 0 <= lo < hi <= self.n_experts, f"experts_held {self.experts_held}"
         assert self.attn_shard in ("kv", "group")
 
     # --------------------------------------------------------------- param count
@@ -153,7 +176,7 @@ class ModelConfig:
             + (2 * Hd if self.qk_norm else 0) + d,
             "mlp": 3 * d * self.d_ff + d,
             "moe": d * self.n_experts
-            + 3 * self.n_experts * d * self.moe_d_ff + d,
+            + 3 * self.n_held_experts * d * self.moe_d_ff + d,
             "mamba": 0,
             "mlstm": 0,
             "slstm": 0,
@@ -164,6 +187,7 @@ class ModelConfig:
         counts["mamba"] = (
             d * 2 * di + self.mamba_d_conv * di + di
             + di * (dr + 2 * ds) + dr * di + di + di * ds + di + di * d + d
+            + ((dr + 2 * ds) if self.mamba_inner_norm else 0)
         )
         counts["mlstm"] = 3 * d * H * (d // H) + d * H * 2 + H * 2 + H * (d // H) * d + (d // H) + d
         counts["slstm"] = d * 4 * d + d * 4 * d + 4 * d + d * d + d
@@ -185,7 +209,7 @@ class ModelConfig:
                     if sub == "moe":
                         moe_total += st.n_periods
         dense_equiv = self.param_count() - moe_total * (
-            3 * self.n_experts * self.d_model * self.moe_d_ff
+            3 * self.n_held_experts * self.d_model * self.moe_d_ff
         )
         return dense_equiv + moe_total * 3 * self.top_k * self.d_model * self.moe_d_ff
 

@@ -50,6 +50,7 @@ of the store's chunks (on the host).
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass, field
@@ -215,11 +216,14 @@ class DeltaGeneration:
     irregular tensors that go through the per-chunk digest path.
     ``dirty_keys`` is the superset of keys that may differ from the parent
     generation (None = unknown → everything is treated as dirty).
+    ``state_keys`` names the extras that hold a recurrent sublayer's state
+    (traced as ``dump.state``).
     """
 
     views: Dict[str, ChunkedView] = field(default_factory=dict)
     extras: Dict[str, np.ndarray] = field(default_factory=dict)
     dirty_keys: Optional[FrozenSet[str]] = None
+    state_keys: FrozenSet[str] = frozenset()
 
     def is_dirty(self, key: str) -> bool:
         return self.dirty_keys is None or key in self.dirty_keys
@@ -655,7 +659,11 @@ class DeltaDumpPipeline:
                     res.entries[key] = pm
                     res.clean_keys += 1
                     continue
-                meta, n_dirty = digest_encode_array(store, arr, pm)
+                is_state = key in gen.state_keys
+                with trace.span("dump.state") if is_state else contextlib.nullcontext():
+                    meta, n_dirty = digest_encode_array(store, arr, pm)
+                if is_state:
+                    trace.count("dump.state_bytes", int(arr.nbytes))
                 res.entries[key] = meta
                 res.dirtied += n_dirty
         except BaseException:

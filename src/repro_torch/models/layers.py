@@ -14,6 +14,14 @@ Norms, RoPE and M-RoPE, GQA attention projections, chunked causal
 attention (optionally sliding-window), the GLU MLP, the capacity-bounded
 top-k MoE, mamba's selective SSM and the xLSTM blocks (mLSTM, sLSTM).
 
+Port-only options, each off by default (the JAX package has none of
+them), for Jamba's published block: attention without positional
+encoding (``AttnSpec.rope``), RMSNorms on mamba's dt, B and C after
+``x_proj`` (``MambaSpec.inner_norm``), top-k weights left as the softmax
+gave them (``MoESpec.renormalize``), a dropless MoE (``MoESpec.dropless``)
+and an MoE layer that holds a share of the router's experts
+(``MoESpec.held``), as expert parallelism gives each chip.
+
 Sharded compute follows the reference: every activation constraint of
 its layers is a ``constrain`` here at the same place with the same
 logical axes (a checked identity: one process computes the whole
@@ -164,6 +172,7 @@ class AttnSpec:
     window: Optional[int] = None          # sliding-window size; None = global
     rope_theta: float = 10000.0
     mrope_sections: Optional[Tuple[int, int, int]] = None
+    rope: bool = True                     # False: no positional encoding
 
     @property
     def group(self) -> int:
@@ -191,8 +200,8 @@ def attn_project_qkv(
     x: torch.Tensor,                  # (B, S, D)
     positions: torch.Tensor,          # (B, S) or (B, S, 3) for M-RoPE
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns q (B,S,KVH,G,Hd), k (B,S,KVH,Hd), v (B,S,KVH,Hd), with RoPE
-    and optional qk-norm applied."""
+    """Returns q (B,S,KVH,G,Hd), k (B,S,KVH,Hd), v (B,S,KVH,Hd), with
+    optional qk-norm and RoPE (unless ``spec.rope`` is False) applied."""
     B, S, d = x.shape
     KVH, G, Hd = spec.n_kv_heads, spec.group, spec.head_dim
     q = (x @ params["wq"].reshape(d, -1)).reshape(B, S, KVH, G, Hd)
@@ -201,12 +210,12 @@ def attn_project_qkv(
     if spec.qk_norm:
         q = rms_norm(params["q_norm"], q)
         k = rms_norm(params["k_norm"], k)
-    if spec.mrope_sections is not None:
+    if spec.rope and spec.mrope_sections is not None:
         q = apply_mrope(q, positions[:, :, None, None, :], spec.mrope_sections,
                         theta=spec.rope_theta)
         k = apply_mrope(k, positions[:, :, None, :], spec.mrope_sections,
                         theta=spec.rope_theta)
-    else:
+    elif spec.rope:
         q = apply_rope(q, positions[:, :, None, None], theta=spec.rope_theta)
         k = apply_rope(k, positions[:, :, None], theta=spec.rope_theta)
     if S > 1:  # full-sequence mode: pin batch/head sharding
@@ -327,21 +336,34 @@ class MoESpec:
     top_k: int
     capacity_factor: float = 1.25
     activation: str = "silu"
+    renormalize: bool = True               # top-k weights rescaled to sum to 1
+    dropless: bool = False                 # no assignment skips its expert
+    held: Optional[Tuple[int, int]] = None  # router ids [lo, hi) held here; None: all
+
+    @property
+    def held_range(self) -> Tuple[int, int]:
+        return self.held if self.held is not None else (0, self.n_experts)
 
     def capacity(self, tokens_per_group: int) -> int:
+        if self.dropless:
+            # the top-k ids of a token are distinct: an expert meets each
+            # token of the group at most once
+            return tokens_per_group
         c = int(math.ceil(tokens_per_group * self.top_k / self.n_experts * self.capacity_factor))
         return max(8, -(-c // 8) * 8)  # round up to 8 for tile alignment
 
 
 def moe_init(gen: torch.Generator, spec: MoESpec, dtype, device) -> Params:
+    """The router over all ``n_experts`` and the FFNs of the held ones."""
     s_in = 1.0 / math.sqrt(spec.d_model)
     s_out = 1.0 / math.sqrt(spec.d_ff)
     E, d, f = spec.n_experts, spec.d_model, spec.d_ff
+    lo, hi = spec.held_range
     return {
         "router": _normal(gen, (d, E), s_in, torch.float32, device),
-        "w_gate": _normal(gen, (E, d, f), s_in, dtype, device),
-        "w_up": _normal(gen, (E, d, f), s_in, dtype, device),
-        "w_down": _normal(gen, (E, f, d), s_out, dtype, device),
+        "w_gate": _normal(gen, (hi - lo, d, f), s_in, dtype, device),
+        "w_up": _normal(gen, (hi - lo, d, f), s_in, dtype, device),
+        "w_down": _normal(gen, (hi - lo, f, d), s_out, dtype, device),
     }
 
 
@@ -354,6 +376,22 @@ def _one_hot(ids: torch.Tensor, n: int) -> torch.Tensor:
     return out.scatter_(-1, ids.long().unsqueeze(-1), 1)
 
 
+def _moe_gates(params: Params, spec: MoESpec, x: torch.Tensor):
+    """The router's softmax over all ``n_experts`` and its top k: gate
+    values and expert ids (B, T, K), renormalized unless
+    ``spec.renormalize`` is False, and the per-row aux loss (B,)."""
+    E, K = spec.n_experts, spec.top_k
+    logits = x.float() @ params["router"]                          # (B,T,E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_ids = torch.topk(probs, K, dim=-1)           # (B,T,K)
+    if spec.renormalize:
+        gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    # Switch-style load-balance aux
+    density = _one_hot(expert_ids[..., 0], E).float().mean(dim=1)
+    aux = (density * probs.mean(dim=1)).sum(dim=-1) * E            # (B,)
+    return gate_vals, expert_ids, aux
+
+
 def _moe_route(params: Params, spec: MoESpec, x: torch.Tensor):
     """Router + capacity positions for each batch row's token group.
 
@@ -363,13 +401,7 @@ def _moe_route(params: Params, spec: MoESpec, x: torch.Tensor):
     B, T, _ = x.shape
     E, K = spec.n_experts, spec.top_k
     C = spec.capacity(T)
-    logits = x.float() @ params["router"]                          # (B,T,E)
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_ids = torch.topk(probs, K, dim=-1)           # (B,T,K)
-    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp_min(1e-9)
-    # Switch-style load-balance aux
-    density = _one_hot(expert_ids[..., 0], E).float().mean(dim=1)
-    aux = (density * probs.mean(dim=1)).sum(dim=-1) * E            # (B,)
+    gate_vals, expert_ids, aux = _moe_gates(params, spec, x)
     # position within each expert's capacity, in token-major (t, k) order
     sel = _one_hot(expert_ids.reshape(B, T * K), E)                     # (B,T*K,E)
     pos = ((sel.cumsum(dim=1) - sel) * sel).sum(dim=-1)            # (B,T*K)
@@ -403,6 +435,23 @@ def _moe_combine(h, flat_e, flat_p, gate_vals, keep, T: int) -> torch.Tensor:
     return torch.einsum("btkd,btk->btd", picked, w)
 
 
+def _held_only(flat_e, flat_p, keep, held: Tuple[int, int], C: int):
+    """Routes onto the held experts ``[lo, hi)``: ids made local, and an
+    assignment to an absent expert dropped (slot C, keep False), so that
+    it adds nothing."""
+    lo, hi = held
+    here = (flat_e >= lo) & (flat_e < hi)
+    keep = keep & here
+    return (torch.where(here, flat_e - lo, torch.zeros_like(flat_e)),
+            torch.where(keep, flat_p, torch.full_like(flat_p, C)), keep)
+
+
+def _glu_act(gate: torch.Tensor, activation: str) -> torch.Tensor:
+    if activation == "silu":
+        return torch.nn.functional.silu(gate)
+    return torch.nn.functional.gelu(gate, approximate="tanh")
+
+
 def _moe_expert_ffn(dispatched, w_gate, w_up, w_down, activation: str) -> torch.Tensor:
     """(B,E',C,D) slots through E' experts' GLU FFNs (weights (E',D,F) and
     (E',F,D)) -> (B,E',C,D); one batched product per weight, all rows of an
@@ -411,30 +460,68 @@ def _moe_expert_ffn(dispatched, w_gate, w_up, w_down, activation: str) -> torch.
     xs = dispatched.transpose(0, 1).reshape(E, B * C, D)
     h_gate = torch.bmm(xs, w_gate)
     h_up = torch.bmm(xs, w_up)
-    if activation == "silu":
-        act = torch.nn.functional.silu(h_gate)
-    else:
-        act = torch.nn.functional.gelu(h_gate, approximate="tanh")
+    act = _glu_act(h_gate, activation)
     out = torch.bmm(act * h_up, w_down)                            # (E',B*C,D)
     return out.reshape(E, B, C, D).transpose(0, 1)
 
 
+def _moe_apply_gather(params: Params, spec: MoESpec, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dropless MoE over many tokens a row (a prefill or a training
+    pass): each held expert's FFN runs over just the tokens routed to it,
+    gathered, and its gate-weighted output is added back in float32.
+    Finding an expert's tokens reads their count to the host, so a decode
+    step (one token a row, captured in a CUDA graph) never comes here."""
+    B, T, D = x.shape
+    K = spec.top_k
+    lo, hi = spec.held_range
+    gate_vals, expert_ids, aux = _moe_gates(params, spec, x)
+    xf = x.reshape(B * T, D)
+    ids = expert_ids.reshape(B * T, K)
+    gates = gate_vals.reshape(B * T, K)
+    out = torch.zeros((B * T, D), dtype=torch.float32, device=x.device)
+    for e in range(lo, hi):
+        tok, k = torch.nonzero(ids == e, as_tuple=True)
+        if tok.numel() == 0:
+            continue
+        xe = xf[tok]
+        h = _glu_act(xe @ params["w_gate"][e - lo], spec.activation) * (xe @ params["w_up"][e - lo])
+        y = h @ params["w_down"][e - lo]
+        out.index_add_(0, tok, y.float() * gates[tok, k][:, None])
+    return out.to(x.dtype).reshape(B, T, D), aux.mean()
+
+
 def moe_apply(params: Params, spec: MoESpec, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Capacity-bounded top-k MoE; returns (out (B,S,D), aux_loss ()).
+    """Top-k MoE, capacity-bounded unless dropless; returns (out (B,S,D),
+    aux_loss ()).
 
     Two paths, chosen as the reference chooses (``layers.py:432``):
 
     * **local**: each batch row is one token group, dispatched into
-      per-expert capacity slots, run through every expert's FFN (empty
-      slots give exact zeros) and combined with its gate weights;
+      per-expert capacity slots, run through every held expert's FFN
+      (empty slots give exact zeros) and combined with its gate weights;
+      a dropless layer takes one slot per token of the group, and over
+      more than one token a row gathers each expert's tokens instead
+      (:func:`_moe_apply_gather`);
     * **expert-parallel**, when an activation-sharding context with a mesh
-      and a model axis is installed: :func:`_moe_apply_shard_map`."""
+      and a model axis is installed: :func:`_moe_apply_shard_map`, which
+      takes every expert and a capacity.
+
+    Held experts (``spec.held``): the router keeps its ``n_experts``
+    outputs and takes the top k over all of them; an assignment to an
+    expert this chip does not hold adds nothing."""
     ctx = current_act_ctx()
     if ctx is not None and ctx.get("mesh") is not None and ctx.get("model"):
+        if spec.held is not None or spec.dropless:
+            raise ValueError("the expert-parallel MoE takes every expert and a capacity")
         return _moe_apply_shard_map(params, spec, x, ctx)
     T = x.shape[1]
+    if spec.dropless and T > 1:
+        return _moe_apply_gather(params, spec, x)
     gate_vals, flat_e, flat_p, keep, aux, C = _moe_route(params, spec, x)
-    dispatched = _moe_dispatch(x, flat_e, flat_p, spec.n_experts, C)
+    lo, hi = spec.held_range
+    if spec.held is not None:
+        flat_e, flat_p, keep = _held_only(flat_e, flat_p, keep, (lo, hi), C)
+    dispatched = _moe_dispatch(x, flat_e, flat_p, hi - lo, C)
     h = _moe_expert_ffn(dispatched, params["w_gate"], params["w_up"], params["w_down"],
                         spec.activation)
     out = _moe_combine(h, flat_e, flat_p, gate_vals, keep, T)
@@ -552,6 +639,7 @@ class MambaSpec:
     d_state: int = 16
     d_conv: int = 4
     expand: int = 2
+    inner_norm: bool = False               # RMSNorm dt, B and C after x_proj
 
     @property
     def d_inner(self) -> int:
@@ -568,7 +656,7 @@ def mamba_init(gen: torch.Generator, spec: MambaSpec, dtype, device) -> Params:
     si = 1.0 / math.sqrt(di)
     u = torch.rand((di,), generator=gen, device=device, dtype=torch.float32)
     log_dt = math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3))
-    return {
+    params = {
         "w_in": _normal(gen, (d, 2 * di), s, dtype, device),
         "conv_w": _normal(gen, (spec.d_conv, di), 0.5, dtype, device),
         "conv_b": torch.zeros((di,), dtype=dtype, device=device),
@@ -580,6 +668,11 @@ def mamba_init(gen: torch.Generator, spec: MambaSpec, dtype, device) -> Params:
         "D": torch.ones((di,), dtype=torch.float32, device=device),
         "w_out": _normal(gen, (di, d), si, dtype, device),
     }
+    if spec.inner_norm:
+        params["dt_norm"] = make_norm("rms", dr, dtype, device)
+        params["b_norm"] = make_norm("rms", ds, dtype, device)
+        params["c_norm"] = make_norm("rms", ds, dtype, device)
+    return params
 
 
 def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -621,6 +714,10 @@ def _mamba_inner(params: Params, spec: MambaSpec, xz: torch.Tensor, conv_state, 
 
     dbc = (xc.to(x.dtype) @ params["w_x_dbc"]).float()
     dt_in, Bmat, Cmat = torch.split(dbc, [spec.dt_rank, ds, ds], dim=-1)
+    if spec.inner_norm:
+        dt_in = rms_norm(params["dt_norm"], dt_in)
+        Bmat = rms_norm(params["b_norm"], Bmat)
+        Cmat = rms_norm(params["c_norm"], Cmat)
     dt = torch.nn.functional.softplus(
         (dt_in.to(x.dtype) @ params["w_dt"]).float() + params["dt_bias"]
     )                                                              # (B,S,di)
@@ -654,14 +751,30 @@ def _mamba_inner(params: Params, spec: MambaSpec, xz: torch.Tensor, conv_state, 
     return y.to(xz.dtype), new_conv_state, h
 
 
+MAMBA_PIECE = 4096        # positions a mamba call computes at once; a multiple of its chunk
+
+
 def mamba_apply(params: Params, spec: MambaSpec, x: torch.Tensor, state=None, *, chunk: int = 256):
-    """x: (B,S,D) -> (y, new_state).  state = (conv_state, ssm_state)."""
+    """x: (B,S,D) -> (y, new_state).  state = (conv_state, ssm_state).
+
+    A sequence longer than ``MAMBA_PIECE`` positions (a long prefill) runs
+    piece by piece, each from the states the one before left, so the
+    float32 activations are a piece's, not the whole sequence's.  The
+    states carry over exactly; the result agrees with one call's to
+    float32 rounding (the projections multiply a piece's rows at a time)."""
     if state is None:
         state = mamba_init_state(spec, x.shape[0], x.dtype, x.device)
+    piece = MAMBA_PIECE
+    if piece % chunk:
+        raise ValueError(f"MAMBA_PIECE {piece} is not a multiple of chunk {chunk}")
     conv_state, ssm_state = state
-    xz = x @ params["w_in"]
-    y, conv_state, ssm_state = _mamba_inner(params, spec, xz, conv_state, ssm_state, chunk=chunk)
-    return y @ params["w_out"], (conv_state, ssm_state)
+    ys = []
+    for p0 in range(0, x.shape[1], piece):
+        xz = x[:, p0:p0 + piece] @ params["w_in"]
+        y, conv_state, ssm_state = _mamba_inner(params, spec, xz, conv_state, ssm_state,
+                                                chunk=chunk)
+        ys.append(y @ params["w_out"])
+    return (ys[0] if len(ys) == 1 else torch.cat(ys, dim=1)), (conv_state, ssm_state)
 
 
 def mamba_init_state(spec: MambaSpec, batch: int, dtype, device) -> Tuple[torch.Tensor, torch.Tensor]:

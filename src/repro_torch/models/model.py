@@ -6,10 +6,12 @@ A model is a stack of *stages*; each stage repeats a *period* of layers
 package's ``lax.scan`` layout; here a Python loop over the stacked
 params).  A layer is a tuple of sublayers, each pre-normed + residual:
 
-    attn / attn_local   GQA attention (qk-norm, RoPE / M-RoPE, sliding window)
+    attn / attn_local   GQA attention (qk-norm, RoPE / M-RoPE or none, sliding window)
     mlp                 GLU MLP (SwiGLU / GeGLU)
-    moe                 capacity-bounded top-k mixture of experts
-    mamba               S6 selective SSM (chunked doubling scan)
+    moe                 top-k mixture of experts: capacity-bounded or dropless,
+                        all the router's experts or a held share of them
+    mamba               S6 selective SSM (chunked doubling scan; optional
+                        dt/B/C RMSNorms)
     mlstm / slstm       xLSTM blocks
 
 Three modes share one code path:
@@ -67,6 +69,7 @@ def _attn_spec(cfg: ModelConfig, kind: str) -> L.AttnSpec:
         window=cfg.window if kind == "attn_local" else None,
         rope_theta=cfg.rope_theta,
         mrope_sections=cfg.mrope_sections,
+        rope=cfg.rope,
     )
 
 
@@ -78,6 +81,9 @@ def _moe_spec(cfg: ModelConfig) -> L.MoESpec:
         top_k=cfg.top_k,
         capacity_factor=cfg.capacity_factor,
         activation=cfg.activation,
+        renormalize=cfg.moe_renormalize,
+        dropless=cfg.moe_dropless,
+        held=cfg.experts_held,
     )
 
 
@@ -87,6 +93,7 @@ def _mamba_spec(cfg: ModelConfig) -> L.MambaSpec:
         d_state=cfg.mamba_d_state,
         d_conv=cfg.mamba_d_conv,
         expand=cfg.mamba_expand,
+        inner_norm=cfg.mamba_inner_norm,
     )
 
 

@@ -129,10 +129,13 @@ class DecodeProgram:
         h[B:2 * B] = [s.seq_len for s in sessions]
         h[2 * B:].reshape(B, -1)[:] = np.stack([s.table for s in sessions])
         self.staged.copy_(self.host, non_blocking=True)
-        for key, leaves in self.states.items():
-            for b, s in enumerate(sessions):
-                for leaf, t in leaves.items():
-                    t[:, b:b + 1].copy_(s.extras[key][leaf])
+        if not self.states:
+            return
+        with trace.span("engine.state"):
+            for key, leaves in self.states.items():
+                for b, s in enumerate(sessions):
+                    for leaf, t in leaves.items():
+                        t[:, b:b + 1].copy_(s.extras[key][leaf])
 
     def run(self) -> torch.Tensor:
         """The step's logits (the graph's static output on a replay: read
@@ -156,10 +159,13 @@ class DecodeProgram:
     def absorb(self, sessions: Sequence[PagedSession]) -> None:
         """Rebind each session's states to its slice of one clone of the
         static buffers."""
-        for key, leaves in self.states.items():
-            new = {leaf: t.clone() for leaf, t in leaves.items()}
-            for b, s in enumerate(sessions):
-                s.extras[key] = {leaf: t[:, b:b + 1] for leaf, t in new.items()}
+        if not self.states:
+            return
+        with trace.span("engine.state"):
+            for key, leaves in self.states.items():
+                new = {leaf: t.clone() for leaf, t in leaves.items()}
+                for b, s in enumerate(sessions):
+                    s.extras[key] = {leaf: t[:, b:b + 1] for leaf, t in new.items()}
 
 
 class Engine:

@@ -681,7 +681,8 @@ class PagedSession:
             path = name[len("extra/"):]
             val = _host_extra(arr)
             if path.split("::", 1)[0] in pool.state_keys:
-                val = _device_extra(val, pool.device)
+                with trace.span("cr.restore.state"):
+                    val = _device_extra(val, pool.device)
             if "::" in path:                     # nested dict
                 head, *rest = path.split("::")
                 node = sess.extras.setdefault(head, {})
@@ -755,6 +756,8 @@ class PagedSession:
                         trailing_pad=0,
                         grid_fn=build,
                     )
+        states = frozenset(key for key in extras if key.startswith("extra/")
+                           and key[len("extra/"):].split("::", 1)[0] in self.pool.state_keys)
         if self._dirty_pages is None or self._dirty_extras is None:
             dirty_keys = None
         else:
@@ -770,7 +773,8 @@ class PagedSession:
             if self._dirty_pages:
                 dirty.update(views)
             dirty_keys = frozenset(dirty)
-        return DeltaGeneration(views=views, extras=extras, dirty_keys=dirty_keys)
+        return DeltaGeneration(views=views, extras=extras, dirty_keys=dirty_keys,
+                               state_keys=states)
 
     # --------------------------------------------------------------- write
     def plan_writable(self, *, extra_tokens: int = 1) -> WritePlan:

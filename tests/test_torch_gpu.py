@@ -697,3 +697,61 @@ def test_cuda_child_dump_after_its_parents_generation_left_the_cache(cuda):
     fetched, dirty_bytes, padded, same = _carried_fork_dump(cuda, "qwen3-14b", 300)
     assert same
     assert 0 < fetched <= dirty_bytes + 2 * (8 * padded + 8)
+
+
+def _jamba_shaped_config():
+    """A tiny model of Jamba2-Mini's block: one period of 7 mamba and 1
+    attention layers (no RoPE) with dense and MoE FFNs alternating, mamba's
+    dt/B/C norms, top-2 of 16 experts unrenormalized and dropless, 8 held;
+    head_dim 64, which the card's ``paged_attention`` takes."""
+    from repro_torch.configs import ModelConfig, Stage
+    from repro_torch.configs.jamba_1_5_large_398b import _PERIOD
+
+    return ModelConfig(name="jamba2-mini-shaped", family="hybrid",
+                       stages=(Stage(period=_PERIOD, n_periods=1),), d_model=256, n_heads=4,
+                       n_kv_heads=2, head_dim=64, d_ff=128, vocab_size=256, rope=False,
+                       n_experts=16, top_k=2, moe_d_ff=96, moe_renormalize=False,
+                       moe_dropless=True, experts_held=(0, 8), mamba_inner_norm=True,
+                       tie_embeddings=False, dtype="float32", param_dtype="float32")
+
+
+@pytest.mark.gpu
+def test_cuda_jamba_graphed_decode_matches_cpu(cuda):
+    """The graphed decode of a Jamba2-Mini-shaped model (mamba states staged
+    into a CUDA graph, the held-expert MoE captured without a host read)
+    against the eager decode on the CPU: logits within 2e-2, every state
+    leaf too, tokens equal."""
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine, PagePool
+
+    cfg = _jamba_shaped_config()
+    cpu_model = Model(cfg, device="cpu")
+    cpu_model.init(torch.Generator().manual_seed(0))
+
+    def to_cuda(t):
+        return {k: to_cuda(v) for k, v in t.items()} if isinstance(t, dict) else t.to(cuda)
+
+    cuda_model = Model(cfg, device=cuda, params=to_cuda(cpu_model.params))
+    runs = []
+    for m, d in ((cpu_model, "cpu"), (cuda_model, cuda)):
+        eng = Engine(m, PagePool(cfg, num_pages=32, page_size=16, max_pages_per_session=8, device=d))
+        trunk = eng.new_session(list(range(3, 24)))
+        kid = trunk.fork()
+        kid.tokens[-1] = 7
+        toks, logits = [], []
+        for _ in range(4):
+            toks.append(eng.step([trunk, kid]))
+            logits.append(np.stack([trunk.extras["last_logits"], kid.extras["last_logits"]]))
+        states = {k: {leaf: t.cpu() for leaf, t in kid.extras[k].items()}
+                  for k in eng.pool.state_keys}
+        runs.append((toks, logits, states, d))
+        if d != "cpu":
+            assert eng.graphs and eng._get_decode(2).replays == 3
+    torch.cuda.synchronize()
+    (cpu_toks, cpu_logits, cpu_states, _), (gpu_toks, gpu_logits, gpu_states, _) = runs
+    assert gpu_toks == cpu_toks
+    for a, b in zip(gpu_logits, cpu_logits):
+        np.testing.assert_allclose(a, b, atol=2e-2, rtol=2e-2)
+    for key, leaves in cpu_states.items():
+        for leaf, want in leaves.items():
+            torch.testing.assert_close(gpu_states[key][leaf], want, atol=2e-2, rtol=2e-2)
