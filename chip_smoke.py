@@ -1606,8 +1606,9 @@ def run_decode_search(device, model, *, num_pages, page_size, max_pages, prompt_
 
         def delta_chain_gate(ckpt_id) -> dict:
             """A fork of the node dumped whole (a), decoded, dumped as a delta
-            against a (b): b's slow restore rebuilds it over a's generation with
-            delta_apply, and is held to the same gate."""
+            against a (b): b's slow restore forks the live template nearest
+            its image (a's, where no other is nearer) and writes the pages
+            that differ with delta_apply, and is held to the same gate."""
             sess = cr.restore(ckpt_id)[0]
             a = sm.allocate_ckpt_id()
             cr.checkpoint(sess, a, None)

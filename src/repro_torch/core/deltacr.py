@@ -232,6 +232,12 @@ class ForkableState(Protocol):
         """Flat name→array payload capturing the full state (numpy arrays,
         or torch tensors for device state)."""
 
+    # Optional, detected with hasattr as ``delta_generation`` is: a state
+    # that takes a patch (``PagedSession``) offers ``patch_positions(image,
+    # own_image)`` and ``apply_patch(image, own_image, positions, store)``,
+    # and a slow restore then forks a live template and writes only what
+    # differs (``DeltaCR._patch_restore``).
+
 
 class CowArrayState:
     """Host-side ForkableState over a dict of numpy arrays.
@@ -1457,9 +1463,12 @@ class DeltaCR:
         """Return a fresh session state for ``ckpt_id``.
 
         Fast path: fork the live template (O(metadata)).  Slow path: rebuild
-        from the dump image — via ``kernels.delta_apply`` over the nearest
-        materialized base generation when available — then re-inject the
-        rebuilt state as a template so future restores take the fast path.
+        from the dump image — a fork of the live template nearest the image
+        with its differing pages written (``_patch_restore``) where the
+        state takes a patch, else the image decoded, via
+        ``kernels.delta_apply`` over the parent's generation when it is
+        materialized — then re-inject the rebuilt state as a template so
+        future restores take the fast path.
         A kernel failure of an earlier async warm is raised here first.
         The ``cr.restore`` span names the path; a slow one holds
         ``cr.restore.image_wait`` and ``cr.restore.decode``.
@@ -1499,20 +1508,24 @@ class DeltaCR:
         if image_ref is None:
             raise KeyError(f"checkpoint {ckpt_id}: image was dropped")
         parent_ref = self.images.acquire_image(image.parent_id)
+        rebuilt: Optional[ForkableState] = None
         try:
             with trace.span("cr.restore.decode", ckpt=ckpt_id):
-                if self.pipeline is not None:
-                    parent_image = self.images.get(image.parent_id)
-                    payload = self.pipeline.decode(image, parent_image)
-                else:
-                    payload = {
-                        name: read_meta_array(self.store, meta)
-                        for name, meta in image.entries.items()
-                    }
+                rebuilt = self._patch_restore(ckpt_id, image)
+                if rebuilt is None:
+                    if self.pipeline is not None:
+                        parent_image = self.images.get(image.parent_id)
+                        payload = self.pipeline.decode(image, parent_image)
+                    else:
+                        payload = {
+                            name: read_meta_array(self.store, meta)
+                            for name, meta in image.entries.items()
+                        }
         finally:
             self.images.release(parent_ref)
             self.images.release(image_ref)
-        rebuilt = self.restore_fn(payload)
+        if rebuilt is None:
+            rebuilt = self.restore_fn(payload)
         mark_unknown(rebuilt)
         with self._lock:
             # Re-inject as template (paper: restored process is frozen and
@@ -1524,6 +1537,51 @@ class DeltaCR:
         if self.async_warm:
             self._warm_executor.submit(self._safe_warm, new_state)
         return new_state, "slow"
+
+    def _patch_restore(self, ckpt_id: int, image: DumpImage) -> Optional[ForkableState]:
+        """A slow restore as the paper's rollback: fork the live template
+        whose committed image differs from ``image`` in the fewest page
+        positions (the most recently used of equals), then write those
+        positions alone from the store (the state's ``apply_patch``).  Of
+        the base image only the chunk ids are read.  The restored
+        generation is registered on lazy views of a fork of the state,
+        anchored on it as a dump's is on its source, so a child's dump
+        diffs against it on the device.  Counted in ``cr.restore.patch``
+        and ``cr.restore.patch_pages``.  None where no template serves (a
+        state without ``apply_patch``, a layout ``patch_positions``
+        refuses, no template whose image has committed): the caller then
+        decodes the image whole."""
+        with self._lock:
+            best = None
+            for tid in reversed(self._templates):      # most recently used first
+                template, fut = self._templates[tid], self._images.get(tid)
+                if (not hasattr(template, "apply_patch") or fut is None or not fut.done()
+                        or fut.cancelled() or fut.exception() is not None):
+                    continue
+                own = fut.result()
+                positions = template.patch_positions(image, own)
+                if positions is not None and (best is None or len(positions) < len(best[2])):
+                    best = (template, own, positions)
+            if best is None:
+                return None
+            template, own, positions = best
+            # the fork keeps the base's pages when the template is evicted
+            state = template.fork()
+        try:
+            state.apply_patch(image, own, positions, self.store)
+        except BaseException:
+            state.release()
+            raise
+        trace.count("cr.restore.patch")
+        trace.count("cr.restore.patch_pages", len(positions))
+        if self.pipeline is not None:
+            anchor = state.fork()
+            views = anchor.delta_generation(self.store.chunk_bytes).views
+            self.pipeline.register(image.image_id, views, anchor=anchor)
+            if not self.images.is_live(ckpt_id):
+                # dropped during the restore: never leak the anchor
+                self.pipeline.evict(image.image_id)
+        return state
 
     def _safe_warm(self, state: ForkableState) -> None:
         """Run a state's warm on the warm thread.  Warm is best-effort (plain

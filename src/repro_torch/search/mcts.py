@@ -1,6 +1,7 @@
 """UCT Monte-Carlo Tree Search over DeltaState checkpoints.
 
-Ported unchanged from the JAX package's ``search/mcts.py``.
+Ported from the JAX package's ``search/mcts.py``; the parallel driver alone
+also paces itself to its dumps (below).
 
 The paper's primary workload (SWE-Search-style MCTS, §2.1/§6.2.1): every
 expansion checkpoints at the parent node and rolls back to arbitrary
@@ -24,7 +25,10 @@ Two drivers share the statistics and selection policy:
   ``checkpoint_burst`` storm.  Value-time isolation comes for free: the
   evaluation runs on the disposable fork *after* its checkpoint froze the
   node, so test side effects die with the fork instead of needing a
-  pre-test checkpoint + unconditional rollback.  Under a fixed wall-clock
+  pre-test checkpoint + unconditional rollback.  A batch starts once at
+  most ``k`` of the run's dumps are still queued or running
+  (``MCTS._pace``): leaves faster than the one dump worker then wait for
+  it between batches, not inside a checkpoint.  Under a fixed wall-clock
   budget the parallel driver explores ≈``k×`` the nodes whenever action
   execution (tool calls, LLM round-trips) dominates — the paper's "explore
   substantially more nodes under fixed time budgets" claim, made concrete
@@ -36,7 +40,7 @@ import dataclasses
 import math
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor, wait
 from typing import Any, Dict, List, Optional, Protocol, Sequence, Tuple
 
 from .. import trace
@@ -299,9 +303,11 @@ class MCTS:
         )
         try:
             it = 0
+            landing: List[Future] = []      # this run's dumps not yet landed
             while it < cfg.iterations:
                 if deadline is not None and time.monotonic() >= deadline:
                     break
+                landing = self._pace(landing, cfg.parallel_leaves)
                 batch = min(cfg.parallel_leaves, cfg.iterations - it)
                 # 1. batched selection under virtual loss (driver thread)
                 picks: List[Tuple[int, Optional[Any]]] = []
@@ -345,6 +351,9 @@ class MCTS:
                             child, self.depth[target] + 1, actions, terminal
                         )
                         self._backprop(child, value)
+                        dumped = sm.deltacr.dump_future(child)
+                        if dumped is not None:
+                            landing.append(dumped)
                 if errors:
                     raise errors[0]
                 it += batch
@@ -362,6 +371,21 @@ class MCTS:
             for sid in leaked:
                 tree.release(sid)
         return st
+
+    @staticmethod
+    def _pace(landing: List[Future], ahead: int) -> List[Future]:
+        """Hold the next batch until at most ``ahead`` of the run's dumps
+        are queued or running; returns those still in flight.  Leaves that
+        outrun DeltaCR's one dump worker would otherwise queue dumps without
+        bound, each holding a fork of its node's session until it lands,
+        and a node is saved only once its dump has landed.  A contended wait
+        is a ``search.dump_wait`` span on the driver thread."""
+        landing = [f for f in landing if not f.done()]
+        if len(landing) > ahead:
+            with trace.span("search.dump_wait", dumps=len(landing) - ahead):
+                wait(landing[: len(landing) - ahead])   # FIFO: the oldest land first
+            landing = [f for f in landing if not f.done()]
+        return landing
 
     def _explore_leaf(
         self, tree: SandboxTree, target: int, action: Optional[Any], seed: int,

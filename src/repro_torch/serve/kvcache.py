@@ -51,7 +51,7 @@ from ..core import faults
 from ..core.convert import tensor_from_numpy
 from ..core.delta_pipeline import ChunkedView, DeltaGeneration
 from ..core.deltacr import resolve_device
-from ..core.deltafs import dtype_str
+from ..core.deltafs import dtype_str, read_meta_array
 from ..dist import shard_dump as _sd
 from ..dist.placement import NamedSharding, PartitionSpec, ShardedTensor, device_put
 from ..kernels import ops as kops
@@ -438,6 +438,78 @@ class PagePool:
                     rows = _as_pool_tensor(payload[f"kv/{skey}/{tag}/{kv}"], pool)
                     pool.index_copy_(1, idx, rows.movedim(0, 1).contiguous())
 
+    def kv_keys(self) -> List[str]:
+        """The image keys of the K/V pools, ``kv/<stage>/<tag>/{k,v}``."""
+        return [f"kv/{s}/{t}/{kv}" for s, t in self.attn_tags for kv in ("k", "v")]
+
+    def page_chunk_ids(self, entries: Dict[str, Any]) -> Optional[np.ndarray]:
+        """``(len(kv_keys()), n_pages)`` chunk ids of an image's K/V
+        entries, where each entry holds one chunk a page in this pool's
+        layout (the flat grids a session's dump writes); an image with no
+        K/V (an empty session) gives ``n_pages`` 0.  None for any other
+        layout: tiled, chunked otherwise, another page shape or dtype."""
+        keys = self.kv_keys()
+        if not any(k in entries for k in keys):
+            return np.zeros((len(keys), 0), np.int64)
+        ids = []
+        for skey, tag in self.attn_tags:
+            proto = self.pools_k[skey][tag]
+            page = (proto.shape[0],) + tuple(proto.shape[2:])
+            for kv in ("k", "v"):
+                m = entries.get(f"kv/{skey}/{tag}/{kv}")
+                if (m is None or m.tile_grid or m.trailing_pad or m.dtype != dtype_str(proto.dtype)
+                        or tuple(m.shape[1:]) != page or len(m.chunk_ids) != m.shape[0]):
+                    return None
+                ids.append(m.chunk_ids)
+        if len({len(c) for c in ids}) != 1:
+            return None
+        return np.asarray(ids, np.int64)
+
+    def write_pages(self, chunks: Dict[str, np.ndarray]) -> List[int]:
+        """Fresh pages holding dump chunks (a patched slow restore):
+        ``chunks[key]`` holds, for each K/V key, one chunk a page, ``(n,
+        page_bytes)`` uint8 on the host, and goes to the device first
+        (through pinned memory on the card, not waiting for the queue).
+        Under the lock, which the allocation and the writes hold as the
+        ``kvpool.scatter`` span, ``n`` pages are allocated and each pool
+        tensor, seen as uint8 rows ``(periods × num_pages, page_bytes ÷
+        periods)`` (one a period's page), takes its chunks with one
+        ``kops.delta_apply``: a chunk is ``periods`` consecutive rows at row
+        ``l × num_pages + page``.  Returns the pages; a failure gives them
+        back."""
+        n = len(next(iter(chunks.values()))) if chunks else 0
+        if not n:
+            return []
+        rows = {key: _upload(c, self.device) for key, c in chunks.items()}
+        with self._lock, trace.span("kvpool.scatter"):
+            pages: List[int] = []
+            try:
+                for _ in range(n):
+                    pages.append(self.alloc())
+                for skey, tag in self.attn_tags:
+                    for pools, kv in ((self.pools_k, "k"), (self.pools_v, "v")):
+                        pool = pools[skey][tag]
+                        periods = pool.shape[0]
+                        idx = (np.arange(periods, dtype=np.int32)[None, :] * self.num_pages
+                               + np.asarray(pages, np.int32)[:, None]).reshape(-1)
+                        grid = pool.view(torch.uint8).view(periods * self.num_pages, -1)
+                        data = rows[f"kv/{skey}/{tag}/{kv}"].view(len(idx), -1)
+                        kops.delta_apply(grid, data, _upload(idx, self.device))
+            except BaseException:
+                if pages:
+                    self.decref(np.asarray(pages, np.int64))
+                raise
+        return pages
+
+
+def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``; on the card through pinned memory, so
+    that the host does not wait for the work queued before the copy."""
+    t = torch.from_numpy(arr)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
 
 def _gather_rows(pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``pool[:, idx]`` with the page axis first, as a fresh contiguous
@@ -502,6 +574,12 @@ def _host_extra(val: Any) -> Any:
     """An extras leaf as the dump sees it: tensors as they are, anything
     else as a numpy array."""
     return val if isinstance(val, torch.Tensor) else np.asarray(val)
+
+
+def _same_entry(a: Any, b: Any) -> bool:
+    """Two image entries of the same bytes: shape, dtype and chunk ids."""
+    return (tuple(a.shape) == tuple(b.shape) and a.dtype == b.dtype and a.chunk_ids == b.chunk_ids
+            and a.trailing_pad == b.trailing_pad and tuple(a.tile_grid) == tuple(b.tile_grid))
 
 
 def _device_extra(val: Any, device: torch.device) -> torch.Tensor:
@@ -676,22 +754,101 @@ class PagedSession:
                 {k: v for k, v in payload.items() if k.startswith("kv/")},
             )
         for name, arr in payload.items():
+            if name.startswith("extra/"):
+                path = name[len("extra/"):]
+                sess._put_extra(path, sess._restored_extra(path, arr))
+        return sess
+
+    def _restored_extra(self, path: str, arr: Any) -> Any:
+        """An extras leaf read from an image as the session holds it: a
+        recurrent state's uploaded to the pool's device (the
+        ``cr.restore.state`` span), any other as ``_host_extra`` gives it."""
+        val = _host_extra(arr)
+        if path.split("::", 1)[0] in self.pool.state_keys:
+            with trace.span("cr.restore.state"):
+                val = _device_extra(val, self.pool.device)
+        return val
+
+    def _put_extra(self, path: str, val: Any) -> None:
+        """Set the extras leaf at a flat ``path`` (nested dict keys joined
+        with ``::``)."""
+        if "::" in path:                     # nested dict
+            head, *rest = path.split("::")
+            node = self.extras.setdefault(head, {})
+            for part in rest[:-1]:
+                node = node.setdefault(part, {})
+            node[rest[-1]] = val
+        else:
+            self.extras[path] = val
+
+    # ---------------------------------------------------- patched restore
+    def patch_positions(self, image: Any, own_image: Any) -> Optional[np.ndarray]:
+        """The page positions at which ``image`` differs from
+        ``own_image``, the committed image of this session (a template):
+        those where a K/V key's chunk id differs, and those where this
+        session has no page.  Chunk ids are content keys, so equal ids are
+        equal bytes.  None where this session cannot be patched into
+        ``image``: a pool without attention or laid over several ranks, or
+        K/V entries of either image laid out otherwise than one chunk a
+        page (``PagePool.page_chunk_ids``)."""
+        pool = self.pool
+        if not pool.attn_tags or pool.multi_device():
+            return None
+        want = pool.page_chunk_ids(image.entries)
+        have = pool.page_chunk_ids(own_image.entries)
+        if want is None or have is None:
+            return None
+        n, m = want.shape[1], min(want.shape[1], have.shape[1])
+        dirty = np.ones(n, bool)
+        dirty[:m] = (want[:, :m] != have[:, :m]).any(axis=0)
+        return np.flatnonzero(dirty)
+
+    def apply_patch(self, image: Any, own_image: Any, positions: np.ndarray, store: Any) -> None:
+        """Turn this session, a fresh fork of the template whose committed
+        image is ``own_image``, into ``image``, at the ``positions`` that
+        ``patch_positions`` gave.  Each takes a fresh page that
+        ``PagePool.write_pages`` fills with the image's chunks there and
+        gives its old page back, in one hold of the pool lock; positions
+        past the image's length give theirs back too; every other page
+        stays shared with the template.  Length and tokens come from the
+        image.  An extras leaf whose entry equals ``own_image``'s stays the
+        template's (leaves are rebound, never mutated); any other is read
+        from ``store``.  Every read comes before a page moves, so a failed
+        read or write leaves the fork as it was."""
+        pool = self.pool
+        entries, own = image.entries, own_image.entries
+        seq_len = int(read_meta_array(store, entries["meta/seq_len"])[0])
+        tokens = [int(t) for t in read_meta_array(store, entries["meta/tokens"])]
+        positions = [int(p) for p in positions]
+        chunks: Dict[str, np.ndarray] = {}
+        if positions:
+            for key in pool.kv_keys():
+                ids = entries[key].chunk_ids
+                raw = bytearray(store.get_bytes(tuple(ids[p] for p in positions)))
+                chunks[key] = np.frombuffer(raw, np.uint8).reshape(len(positions), -1)
+        mine = self._flat_extras()
+        leaves: List[Tuple[str, Any, bool]] = []       # (path, leaf, read from the store)
+        for name, meta in entries.items():
             if not name.startswith("extra/"):
                 continue
-            path = name[len("extra/"):]
-            val = _host_extra(arr)
-            if path.split("::", 1)[0] in pool.state_keys:
-                with trace.span("cr.restore.state"):
-                    val = _device_extra(val, pool.device)
-            if "::" in path:                     # nested dict
-                head, *rest = path.split("::")
-                node = sess.extras.setdefault(head, {})
-                for part in rest[:-1]:
-                    node = node.setdefault(part, {})
-                node[rest[-1]] = val
+            path, base = name[len("extra/"):], own.get(name)
+            if path in mine and base is not None and _same_entry(base, meta):
+                leaves.append((path, mine[path], False))
             else:
-                sess.extras[path] = val
-        return sess
+                leaves.append((path, read_meta_array(store, meta), True))
+        n_new = -(-seq_len // pool.page_size)
+        with pool.lock:
+            fresh = pool.write_pages(chunks)
+            n_old = self.n_pages
+            old = [int(self.table[p]) for p in positions if p < n_old]
+            old += [int(p) for p in self.table[n_new:n_old]]
+            self.table[positions] = fresh
+            self.table[n_new:] = 0
+            self.seq_len, self.tokens = seq_len, tokens
+            pool.decref(np.asarray(old, np.int64))
+        self.extras = _TrackedExtras(self)
+        for path, leaf, was_read in leaves:
+            self._put_extra(path, self._restored_extra(path, leaf) if was_read else leaf)
 
     # ------------------------------------------------------ DeltaEncodable
     def delta_generation(self, chunk_bytes: int) -> DeltaGeneration:

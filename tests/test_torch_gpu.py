@@ -755,3 +755,63 @@ def test_cuda_jamba_graphed_decode_matches_cpu(cuda):
     for key, leaves in cpu_states.items():
         for leaf, want in leaves.items():
             torch.testing.assert_close(gpu_states[key][leaf], want, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+def test_cuda_patched_restore_writes_through_the_pool_rows(cuda):
+    """A slow restore on the card at qwen3-14b's page shape (40 periods, 8
+    KV heads, head 128, pages of 16): it forks the parent's template and
+    writes the two pages whose chunks differ with ``delta_apply`` through
+    each pool tensor's uint8 row view, one launch per pool tensor, and
+    holds what a fast fork of the node held, bit for bit; the other pages
+    are the template's own."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.delta_pipeline import mark_clean
+    from repro_torch.serve import PagedSession, PagePool
+
+    psz = 16
+    pool = PagePool(get_config("qwen3-14b"), num_pages=96, page_size=psz,
+                    max_pages_per_session=40, device=cuda)
+    assert [tuple(pool.pools_k[s][t].shape) for s, t in pool.attn_tags] == [(40, 96, psz, 8, 128)]
+    gen = torch.Generator(device=cuda).manual_seed(33)
+    for pools in (pool.pools_k, pool.pools_v):
+        for t in pools["stage0"].values():
+            t.copy_(torch.randn(t.shape, generator=gen, device=cuda).to(t.dtype))
+    cr = DeltaCR(restore_fn=lambda p: PagedSession.restore_from_payload(pool, p),
+                 policy=DumpPolicy(mode="delta"), async_warm=False)
+    try:
+        root = PagedSession(pool)
+        root.ensure_writable(extra_tokens=20 * psz - 7)
+        root.seq_len, root.tokens = 20 * psz - 7, [5] * (20 * psz - 7)
+        cr.checkpoint(root, 1, None)
+        node, _ = cr.restore(1)
+        mark_clean(node, 1)
+        node.ensure_writable(extra_tokens=9)
+        for pos in range(node.seq_len, node.seq_len + 9):       # pages 19 and 20
+            page, slot = int(node.table[pos // psz]), pos % psz
+            for pools in (pool.pools_k, pool.pools_v):
+                row = pools["stage0"]["l0_s0_attn"][:, page, slot]
+                row.copy_(torch.randn(row.shape, generator=gen, device=cuda).to(row.dtype))
+        node.seq_len += 9
+        node.tokens += [7] * 9
+        node.extras["last_logits"] = torch.randn(1024, generator=gen, device=cuda)
+        cr.checkpoint(node, 2, 1)
+        cr.wait_dumps()
+        fast, _ = cr.restore(2)
+        want = [pools["stage0"]["l0_s0_attn"][:, fast.active_pages()].clone()
+                for pools in (pool.pools_k, pool.pools_v)]
+        assert cr.evict_template(2)
+        before = ops.launch_counts()["delta_apply"]
+        slow, path = cr.restore(2)
+        torch.cuda.synchronize()
+        assert path == "slow" and ops.launch_counts()["delta_apply"] - before == 2
+        got = [pools["stage0"]["l0_s0_attn"][:, slow.active_pages()]
+               for pools in (pool.pools_k, pool.pools_v)]
+        assert all(torch.equal(g.view(torch.int16), w.view(torch.int16)) for g, w in zip(got, want))
+        assert (slow.seq_len, slow.tokens) == (fast.seq_len, fast.tokens)
+        np.testing.assert_array_equal(slow.table[:19], cr._templates[1].table[:19])
+        assert not set(slow.table[19:21].tolist()) & set(fast.table[:21].tolist())
+        for s in (fast, slow, node, root):
+            s.release()
+    finally:
+        cr.shutdown()

@@ -47,6 +47,7 @@ from repro_torch.core import (
     save_state,
 )
 from repro_torch.core.convert import params_from_numpy
+from repro_torch.core.deltafs import read_meta_array
 from repro_torch.models import Model
 from repro_torch.search import MCTS, DecodeSearchTask, MCTSConfig, decode_fanout
 from repro_torch.serve import (
@@ -623,11 +624,56 @@ def _close(got, want):
                                atol=TOL, rtol=TOL)
 
 
-def test_scheduler_matches_the_reference(rig):
+def _bytes(x):
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+    return t.cpu().contiguous().reshape(-1).view(torch.uint8).numpy()
+
+
+def _drop_patched_generations(cr, jcr, patched) -> int:
+    """A generation that a patched slow restore of the port registered
+    rests on a fork of the restored session, where the JAX package's
+    decode registers host grids that hold no page.  Each such fork holds
+    its own image, byte for byte: length, tokens and every page's K/V as
+    the store has them.  The generation then leaves both packages' caches,
+    so that the page refcounts compare as they stand.  Returns the forks
+    checked."""
+    checked = 0
+    for image_id in sorted(patched):
+        with cr.pipeline._lock:
+            rec = cr.pipeline._gens.get(image_id)
+        image = cr.images.get(image_id)
+        if rec is not None and image is not None:
+            got = rec.anchor.dump_payload()
+            held = {n for n in got if n.startswith(("kv/", "meta/"))}
+            assert held == {n for n in image.entries if n.startswith(("kv/", "meta/"))}
+            for name in held:
+                want = read_meta_array(cr.store, image.entries[name])
+                np.testing.assert_array_equal(_bytes(got[name]), _bytes(want))
+            checked += 1
+        cr.pipeline.evict(image_id)
+        jcr.pipeline.evict(image_id)
+    patched.clear()
+    return checked
+
+
+def test_scheduler_matches_the_reference(rig, monkeypatch):
     """The same submits, steps, forks, suspends (coalesced, urgent and
     forced by page pressure), resumes and finishes give equal token
-    streams, handle states and pool statistics in both packages."""
+    streams, handle states, pool statistics and page references in both
+    packages (the port's patched restores' generations, which rest on
+    forks, are checked and dropped from both caches first)."""
     cfg, jmodel, jparams, model = rig
+    patched = set()
+    patch_restore = DeltaCR._patch_restore
+
+    def noting(self, ckpt_id, image):
+        state = patch_restore(self, ckpt_id, image)
+        if state is not None:
+            patched.add(image.image_id)
+        return state
+
+    monkeypatch.setattr(DeltaCR, "_patch_restore", noting)
+    anchors_checked = [0]
     worlds = []
     for port in (False, True):
         if port:
@@ -661,8 +707,9 @@ def test_scheduler_matches_the_reference(rig):
     def check(outs):
         want, got = outs
         assert got == want
-        (jpool, jeng, _, jsched, _), (pool, eng, _, sched, _) = worlds
+        (jpool, jeng, jcr, jsched, _), (pool, eng, cr, sched, _) = worlds
         assert vars(pool.stats) == vars(jpool.stats)
+        anchors_checked[0] += _drop_patched_generations(cr, jcr, patched)
         np.testing.assert_array_equal(pool.refs, jpool.refs)
         assert {s: h.state for s, h in sched.handles.items()} == \
             {s: h.state for s, h in jsched.handles.items()}
@@ -696,6 +743,7 @@ def test_scheduler_matches_the_reference(rig):
                                          "sessions_suspended", "pending_evictions")}))
     check(outs)
     assert outs[1][0] >= 2 and outs[1][1] >= 2
+    assert anchors_checked[0] >= 1
     check(both(lambda s, sp: [s.finish(sid) for sid in sorted(s.handles)]))
     for pool, _, cr, _, _ in worlds:
         pool.debug_validate()

@@ -145,11 +145,21 @@ def test_a_contended_pool_lock_is_one_span():
     assert wait.t1_ns > wait.t0_ns
 
 
-def test_a_tiny_search_traces_its_run_across_threads():
+def test_a_tiny_search_traces_its_run_across_threads(monkeypatch):
     """Every span of the parallel search carries its run: the leaves' (one
     leaf id each), the restores' (slow ones split into their image wait
-    and decode), the steps', and the dumps' on the worker, including dumps
-    that commit after ``MCTS.run`` returned."""
+    and decode, and a page write for each that wrote pages), the steps',
+    and the dumps' on the worker, including dumps that commit after
+    ``MCTS.run`` returned."""
+    empty = []                  # patched restores that wrote no page
+    apply_patch = PagedSession.apply_patch
+
+    def noting(self, image, own_image, positions, store):
+        if not len(positions):
+            empty.append(image.image_id)
+        return apply_patch(self, image, own_image, positions, store)
+
+    monkeypatch.setattr(PagedSession, "apply_patch", noting)
     cfg = get_config("qwen3-14b-tiny")
     model = Model(cfg, device="cpu")
     model.init(torch.Generator().manual_seed(0))
@@ -194,7 +204,7 @@ def test_a_tiny_search_traces_its_run_across_threads():
     paths = [s.attr["path"] for s in by["cr.restore"]]
     assert "slow" in paths and len(by["cr.restore.image_wait"]) == paths.count("slow")
     assert len(by["cr.restore.decode"]) == paths.count("slow")
-    assert len(by["kvpool.scatter"]) == paths.count("slow")
+    assert len(by["kvpool.scatter"]) == paths.count("slow") - len(empty)
     assert len(by["engine.run"]) == len(by["engine.step"]) > 0
     assert len(by["dump.queue"]) == len(by["dump.run"]) == st.checkpoints
     assert max(s.t1_ns for s in by["dump.run"]) > ended
