@@ -2116,31 +2116,6 @@ def _stop_device_profile(prof, turn: int, top: int = 8) -> dict:
     }
 
 
-def run_auto_turns(device, turns: int = 3) -> dict:
-    """A few turns under DumpPolicy(mode="auto"): its per-dump selections,
-    printed for information only (once calibrated it may pick "copy")."""
-    import torch
-
-    from repro_torch.core import CowTensorState, DeltaCR, DumpPolicy
-
-    gen = torch.Generator(device=device).manual_seed(7)
-    state = CowTensorState(
-        {f"t{i}": torch.randn(4 << 20, generator=gen, device=device) for i in range(4)},
-        device=device,
-    )
-    cr = DeltaCR(
-        restore_fn=lambda p: CowTensorState(p, device=device), policy=DumpPolicy(mode="auto")
-    )
-    cr.checkpoint(state, 1, None)
-    for c in range(2, 2 + turns):
-        state.mutate(f"t{c % 4}", lambda t: t[: 1 << 16].add_(1.0))
-        cr.checkpoint(state, c, c - 1)
-    cr.wait_dumps()
-    modes = [cr.dump_future(c).result().mode for c in range(1, 2 + turns)]
-    cr.shutdown()
-    return {"auto_modes": modes}
-
-
 # ---------------------------------------------------------------------------
 # phase 8: persistence on the card
 # ---------------------------------------------------------------------------
@@ -4744,7 +4719,6 @@ def main() -> int:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")
     say(f"[4 main path] {json.dumps(metrics)} (card: {card})")
-    say(f"[4 main path] auto mode, for information: {json.dumps(run_auto_turns(device))}")
     gc.collect()              # phase 4's DeltaCR holds its state in a reference cycle
     torch.cuda.empty_cache()
     say(f"[4 main path] device memory still allocated: {torch.cuda.memory_allocated()} B")

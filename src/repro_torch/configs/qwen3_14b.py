@@ -1,6 +1,6 @@
 """qwen3-14b [dense] — 40L d_model=5120 40H (GQA kv=8) d_ff=17408 vocab=151936.
 
-qk_norm + GQA.  [hf:Qwen/Qwen3-8B; hf]
+qk_norm + GQA.  [hf:Qwen/Qwen3-14B; hf]
 """
 from .base import ModelConfig, dense_stages, lm_shapes
 
@@ -20,5 +20,5 @@ CONFIG = ModelConfig(
     attn_shard="kv",
     tie_embeddings=False,
     shapes=lm_shapes(long_ok=False),
-    source="hf:Qwen/Qwen3-8B; hf",
+    source="hf:Qwen/Qwen3-14B; hf",
 )

@@ -61,7 +61,7 @@ from .deltacr import (
     ForkableState,
 )
 from .convert import state_from_numpy, state_to_numpy
-from .policy import DumpPolicy, ModeSelector, dirty_fraction_hint
+from .policy import DumpPolicy
 from .image_store import ImageRef, ImageStore, ImageStoreStats
 from .npd import InferenceProxy, ProxyRequest
 from .persist import (
@@ -123,8 +123,6 @@ __all__ = [
     "state_from_numpy",
     "state_to_numpy",
     "DumpPolicy",
-    "ModeSelector",
-    "dirty_fraction_hint",
     "ImageRef",
     "ImageStore",
     "ImageStoreStats",

@@ -536,7 +536,6 @@ class DeltaDumpPipeline:
         *,
         cancel: Optional[threading.Event] = None,
         priority: str = "bg",
-        use_base: bool = True,
         parent_state: Optional[Any] = None,
     ) -> EncodeResult:
         """Build the image entries for one generation (dump-worker thread).
@@ -560,19 +559,12 @@ class DeltaDumpPipeline:
         boundary and rolls back every chunk reference this dump acquired
         (raising :class:`StreamCancelled`); ``priority`` is forwarded to the
         QoS gate ("bg" dumps yield to runnable sessions, "fg" do not).
-
-        ``use_base=False`` is the adaptive engine's *straight-copy* mode for
-        mostly-dirty generations: skip the diff kernels entirely (no base
-        grid lookup → every dirty-hinted key drains in full) while keeping
-        everything else — clean-key metadata reuse, streaming overlap, the
-        parent digest compare at commit (dump bytes stay ∝ the dirty set),
-        and the generation anchor for future O(delta) chaining.
         """
         res = EncodeResult(entries={}, dirtied=0)
         parent_entries = parent_image.entries if parent_image is not None else {}
         parent_rec = None
         carried: Dict[str, Any] = {}
-        if parent_image is not None and use_base:
+        if parent_image is not None:
             trace.count("dump.with_parent")
             parent_rec = self.record_for(parent_image.image_id)
             if parent_state is not None:

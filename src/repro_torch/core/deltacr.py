@@ -64,7 +64,7 @@ from .delta_pipeline import (
 from .deltafs import TensorMeta, dtype_str, host_bytes, read_meta_array
 from .faults import FaultError, WorkerKilled
 from .image_store import DumpTicket, ImageStore
-from .policy import DumpPolicy, ModeSelector, dirty_fraction_hint
+from .policy import DumpPolicy
 from .stream import ChunkStreamEngine, DumpGate, StreamCancelled, StreamConfig
 
 __all__ = [
@@ -330,20 +330,6 @@ class CowArrayState:
     def dirty_tracking_base(self) -> Optional[int]:
         return self._dirty_base if self._dirty is not None else None
 
-    def dirty_fraction_hint(self) -> Optional[float]:
-        """Byte-weighted upper bound on the dirty fraction since the last
-        mark-clean (a key counts fully dirty after one element write);
-        None when tracking is invalid.  Feeds the adaptive mode selector."""
-        if self._dirty is None:
-            return None
-        total = sum(a.nbytes for a in self._arrays.values())
-        if total <= 0:
-            return 0.0
-        dirty = sum(
-            self._arrays[k].nbytes for k in self._dirty if k in self._arrays
-        )
-        return min(dirty / total, 1.0)
-
     # -- ForkableState ---------------------------------------------------
     def fork(self) -> "CowArrayState":
         clone = CowArrayState.__new__(CowArrayState)
@@ -531,17 +517,6 @@ class CowTensorState:
     def dirty_tracking_base(self) -> Optional[int]:
         return self._dirty_base if self._dirty is not None else None
 
-    def dirty_fraction_hint(self) -> Optional[float]:
-        """Byte-weighted upper bound on the dirty fraction since the last
-        mark-clean; None when tracking is invalid."""
-        if self._dirty is None:
-            return None
-        total = sum(t.nbytes for t in self._tensors.values())
-        if total <= 0:
-            return 0.0
-        dirty = sum(self._tensors[k].nbytes for k in self._dirty if k in self._tensors)
-        return min(dirty / total, 1.0)
-
     # -- ForkableState ---------------------------------------------------
     def fork(self) -> "CowTensorState":
         clone = CowTensorState.__new__(CowTensorState)
@@ -648,11 +623,7 @@ class DumpImage:
     dirtied_chunks: int
     dump_bytes: int          # physical bytes this image added
     wall_ms: float
-    mode: str = "digest"     # "delta" | "copy" | "digest" | "legacy"
-    # adaptive-selection telemetry (None when no prediction/parent applied;
-    # process-local observability — deliberately not persisted)
-    predicted_dirty_frac: Optional[float] = None
-    actual_dirty_frac: Optional[float] = None
+    mode: str = "digest"     # "delta" | "digest" | "legacy"
     # streaming accounting (zeros when the dump ran synchronously)
     streamed: bool = False
     stream_windows: int = 0
@@ -689,10 +660,7 @@ class DeltaCRStats:
         self.fallback_dumps = 0       # delta/digest dumps degraded to legacy
         self.degraded_dumps = 0       # dumps that skipped delta in degraded mode
         self.deadline_trips = 0       # per-dump deadlines exceeded
-        # adaptive-mode accounting
         self.mode_dumps: Dict[str, int] = {}  # landed mode -> dump count
-        self.pred_err_sum = 0.0       # Σ|predicted - actual| dirty fraction
-        self.pred_err_n = 0           # dumps with both prediction and actual
         self.lock = threading.Lock()
 
 
@@ -702,16 +670,12 @@ class _EncodeOutcome:
 
     entries: Dict[str, TensorMeta]
     dirtied: int
-    mode: str                                 # "delta" | "copy" | "digest" | "legacy"
+    mode: str                                 # "delta" | "digest" | "legacy"
     anchor_views: Optional[Dict[str, ChunkedView]] = None
     clean_keys: int = 0
     kernel_keys: int = 0
     full_keys: int = 0
     res: Optional[EncodeResult] = None
-    # adaptive-selection telemetry, stamped by _encode_with_recovery
-    pred_frac: Optional[float] = None         # selector's predicted dirty frac
-    hint_frac: Optional[float] = None         # raw state hint fed to predict()
-    fell_back: bool = False                   # primary failed, legacy landed
 
 
 # --------------------------------------------------------------------------
@@ -721,21 +685,13 @@ class DeltaCR:
     """Coordinates the template pool and async delta dumps for one sandbox.
 
     All dump behavior is configured by a single frozen :class:`DumpPolicy`
-    (``DeltaCR(store, policy=DumpPolicy.latency())``); the historical loose
-    keywords (``dump_mode=``, ``dump_retries=``, ...) still work through a
-    deprecation shim that folds them into a policy.
+    (``DeltaCR(store, policy=DumpPolicy.latency())``).
 
     ``policy.mode`` selects the serialization strategy:
 
-    * ``"auto"``  — **adaptive**: per dump, a :class:`ModeSelector` predicts
-      the dirty fraction from the state's dirty-key hint blended with an
-      EWMA of measured fractions for this sandbox lineage, then picks the
-      cheapest path — the kernel delta pipeline at low dirty fractions, a
-      straight full-grid copy (no diff kernel) past the measured crossover,
-      digest for non-:class:`DeltaEncodable` states.  Until the predictor
-      has calibration evidence it behaves exactly like ``"delta"``.
-    * ``"delta"`` — always the kernel pipeline for :class:`DeltaEncodable`
-      states (on-device diff, O(delta) device→host), digest otherwise.
+    * ``"delta"`` — the default: the kernel pipeline for
+      :class:`DeltaEncodable` states (on-device diff, O(delta)
+      device→host), digest otherwise.
     * ``"digest"`` — per-chunk digest delta (hash once, 16-byte parent
       compare); no kernels.
     * ``"legacy"`` — the original full-serialize path (``tobytes`` + full
@@ -752,18 +708,7 @@ class DeltaCR:
         async_warm: bool = True,
         chunk_bytes: int = 64 * 1024,
         pipeline: Optional[DeltaDumpPipeline] = None,
-        **legacy_knobs: Any,
     ):
-        if legacy_knobs:
-            if policy is not None:
-                raise TypeError(
-                    "pass either policy= or the legacy dump keywords, not "
-                    f"both (got legacy: {sorted(legacy_knobs)})"
-                )
-            # Deprecated loose keywords (dump_mode=, dump_retries=, ...)
-            # fold into a DumpPolicy; unknown names raise TypeError exactly
-            # like a normal bad keyword would.
-            policy = DumpPolicy.from_legacy_kwargs(legacy_knobs)
         self.policy = policy if policy is not None else DumpPolicy()
         # NOTE: explicit None check — an *empty* ChunkStore is falsy (len 0),
         # and `store or ChunkStore(...)` would silently split the caller off
@@ -773,7 +718,7 @@ class DeltaCR:
         self.restore_fn = restore_fn
         self.async_warm = async_warm
         self.pipeline = pipeline
-        if self.pipeline is None and self.policy.mode in ("auto", "delta"):
+        if self.pipeline is None and self.policy.mode == "delta":
             engine = None
             if self.policy.stream:
                 # Default engine: adaptive windowing — window budgets track
@@ -793,9 +738,6 @@ class DeltaCR:
                 fused=self.policy.fused_kernel,
                 fused_verify=self.policy.fused_verify,
             )
-        # Per-dump adaptive mode selection (dump-worker thread only).
-        self.selector = ModeSelector(self.policy)
-        self._bind_policy_knobs(self.policy)
         # Degraded-mode state: touched only on the single dump-worker thread.
         self._delta_failures = 0
         self._degraded = False
@@ -825,30 +767,18 @@ class DeltaCR:
         self.store.attach_repair_source(self._repair_from_generations)
 
     # ------------------------------------------------------------- policy
-    def _bind_policy_knobs(self, policy: DumpPolicy) -> None:
-        """Mirror policy fields onto the historical attribute names — the
-        fault-domain machinery (and a lot of external code) reads these."""
-        self.dump_mode = policy.mode
-        self.dump_retries = policy.retries
-        self.retry_backoff_s = policy.retry_backoff_s
-        self.dump_deadline_s = policy.deadline_s
-        self.delta_fail_threshold = policy.delta_fail_threshold
-        self.degraded_probe_every = policy.degraded_probe_every
-
     def apply_policy(self, policy: DumpPolicy) -> None:
         """Re-point this DeltaCR at a new :class:`DumpPolicy`.
 
-        Selection, retry, deadline, degraded-mode, predictor, and fused-path
-        knobs take effect on the next dump (the selector restarts with empty
-        calibration).  Pipeline *topology* — stream engine, capacity,
-        generation budget — is fixed at construction; changing those fields
-        here only affects behavior if a pipeline exists for the new mode.
+        Mode, retry, deadline, degraded-mode and fused-path knobs take
+        effect on the next dump.  Pipeline *topology* — stream engine,
+        capacity, generation budget — is fixed at construction; changing
+        those fields here only affects behavior if a pipeline exists for
+        the new mode.
         """
         if not isinstance(policy, DumpPolicy):
             raise TypeError(f"expected DumpPolicy, got {type(policy).__name__}")
         self.policy = policy
-        self.selector = ModeSelector(policy)
-        self._bind_policy_knobs(policy)
         if self.pipeline is not None:
             self.pipeline.fused = policy.fused_kernel
             self.pipeline.fused_verify = policy.fused_verify
@@ -872,7 +802,7 @@ class DeltaCR:
 
         Dump windows then pass through the scheduler's bounded-in-flight /
         priority-demotion policy; a no-op when this DeltaCR has no stream
-        engine (non-auto dump modes, stream=False)."""
+        engine (digest or legacy dump mode, stream=False)."""
         if self.pipeline is not None and self.pipeline.stream is not None:
             self.pipeline.stream.gate = gate
 
@@ -933,7 +863,7 @@ class DeltaCR:
                 )
                 if (
                     parent_template is not None
-                    and self.dump_mode in ("auto", "delta")
+                    and self.policy.mode == "delta"
                     and self.pipeline is not None
                     and hasattr(parent_template, "delta_generation")
                 ):
@@ -1043,7 +973,9 @@ class DeltaCR:
             # the carried fork serves as a base only where the parent image
             # came through the pipeline (the images its dump registers): a
             # digest or legacy image's entries are laid out otherwise, and
-            # against them the dump drains in full as before
+            # against them the dump drains in full as before.  "copy" is a
+            # pipeline image from the JAX package's straight-copy mode, which
+            # a snapshot it saved brings to a recovered engine.
             piped = parent is not None and parent.mode in ("delta", "copy")
             out = self._encode_with_recovery(
                 ckpt_id, dump_src, parent, priority, cancel,
@@ -1072,21 +1004,6 @@ class DeltaCR:
         clean, kernel, full = out.clean_keys, out.kernel_keys, out.full_keys
         res = out.res
         wall_ms = (time.perf_counter() - t0) * 1e3
-        # Measured dirty fraction: chunks actually written over total chunks
-        # in the image.  Only meaningful against a parent (a root image
-        # writes everything by construction) — the selector's calibration
-        # and the prediction-error stats are gated the same way.
-        total_chunks = sum(len(m.chunk_ids) for m in entries.values())
-        actual_frac = (
-            dirtied / total_chunks if (parent is not None and total_chunks) else None
-        )
-        self.selector.observe(
-            mode=mode,
-            hint=out.hint_frac,
-            actual=actual_frac,
-            wall_ms=wall_ms,
-            fell_back=out.fell_back,
-        )
         image_id = self.images.allocate_image_id()
         image = DumpImage(
             image_id=image_id,
@@ -1096,8 +1013,6 @@ class DeltaCR:
             dump_bytes=self.store.stats.bytes_written - bytes_before,
             wall_ms=wall_ms,
             mode=mode,
-            predicted_dirty_frac=out.pred_frac,
-            actual_dirty_frac=actual_frac,
             streamed=bool(res is not None and res.streamed),
             stream_windows=res.windows if res is not None else 0,
             stream_window_bytes=res.window_bytes if res is not None else 0,
@@ -1126,12 +1041,9 @@ class DeltaCR:
             self.stats.dumps += 1
             self.stats.dump_dirty_chunks += dirtied
             self.stats.dump_bytes += image.dump_bytes
-            if mode in ("delta", "copy"):
+            if mode == "delta":
                 self.stats.delta_dumps += 1     # dumps through the pipeline
             self.stats.mode_dumps[mode] = self.stats.mode_dumps.get(mode, 0) + 1
-            if actual_frac is not None and out.pred_frac is not None:
-                self.stats.pred_err_sum += abs(actual_frac - out.pred_frac)
-                self.stats.pred_err_n += 1
             self.stats.clean_keys += clean
             self.stats.kernel_keys += kernel
             self.stats.full_keys += full
@@ -1154,97 +1066,61 @@ class DeltaCR:
         parent_fork: Optional[ForkableState],
     ) -> _EncodeOutcome:
         """Encode with bounded retries, a per-dump deadline, and graceful
-        degradation: primary path (delta pipeline, full-grid copy, or digest)
-        first, and after it exhausts its retries the legacy full path — so a
-        checkpoint lands unless even full serialization fails, in which case
-        the caller aborts the ticket loudly.  A :class:`KernelError` (a
-        kernel that does not build or launch) takes neither the retries nor
-        the legacy path: it fails the dump at once.  Every failed attempt has
-        rolled back its own chunk references before the next one starts.
+        degradation: primary path (delta pipeline or digest) first, and after
+        it exhausts its retries the legacy full path — so a checkpoint lands
+        unless even full serialization fails, in which case the caller
+        aborts the ticket loudly.  A :class:`KernelError` (a kernel that
+        does not build or launch) takes neither the retries nor the legacy
+        path: it fails the dump at once.  Every failed attempt has rolled
+        back its own chunk references before the next one starts.
 
-        Mode ``"auto"`` picks the primary *per dump*: the selector predicts
-        the dirty fraction (state hint × calibrated ratio, blended with the
-        lineage EWMA) and chooses delta below the crossover, the full-grid
-        copy path above it.  An uncalibrated predictor never overrides the
-        delta default — the first dumps of a lineage behave exactly like
-        forced ``"delta"``, and only observed evidence flips later dumps."""
+        The primary is the delta pipeline where the policy says ``"delta"``,
+        a pipeline exists and the state has ``delta_generation``; otherwise
+        digest, or legacy alone where the policy forces it."""
         deadline = (
-            time.monotonic() + self.dump_deadline_s
-            if self.dump_deadline_s is not None
+            time.monotonic() + self.policy.deadline_s
+            if self.policy.deadline_s is not None
             else None
         )
-        delta_capable = (
-            self.dump_mode in ("auto", "delta")
-            and self.pipeline is not None
-            and hasattr(dump_src, "delta_generation")
-        )
-        hint = dirty_fraction_hint(dump_src)
-        pred: Optional[float] = None
-        if self.dump_mode == "auto":
-            if self.policy.predictor and parent is not None:
-                # Parent-less dumps write everything regardless of mode —
-                # predicting for them would only poison the calibration.
-                pred = self.selector.predict(hint)
-                choice = self.selector.choose(
-                    delta_capable=delta_capable, hint=hint, pred=pred
-                )
-            else:
-                choice = "delta" if delta_capable else "digest"
-        elif self.dump_mode == "delta":
-            choice = "delta" if delta_capable else "digest"
-        elif self.dump_mode == "digest":
-            choice = "digest"
-        else:
-            choice = "legacy"
-        primary: Optional[Tuple[str, Callable[[], _EncodeOutcome]]] = None
-        if choice in ("delta", "copy"):
+        mode = self.policy.mode
+        if mode == "delta" and (
+            self.pipeline is None or not hasattr(dump_src, "delta_generation")
+        ):
+            mode = "digest"
+        primary: Optional[Callable[[], _EncodeOutcome]] = None
+        if mode == "delta":
             if not self._skip_delta_while_degraded():
-                use_base = choice == "delta"
-                primary = (
-                    choice,
-                    lambda: self._delta_attempt(
-                        dump_src, parent, priority, cancel, deadline,
-                        use_base=use_base, parent_fork=parent_fork,
-                    ),
-                )
+                primary = lambda: self._delta_attempt(
+                    dump_src, parent, priority, cancel, deadline, parent_fork)
             # else: degraded — go straight to the legacy full path below,
             # probing the pipeline again every degraded_probe_every dumps
-        elif choice == "digest":
-            primary = (
-                "digest",
-                lambda: self._digest_attempt(ckpt_id, dump_src, parent, cancel),
-            )
-        fell_back = False
+        elif mode == "digest":
+            primary = lambda: self._digest_attempt(ckpt_id, dump_src, parent, cancel)
+        last_error: Optional[Exception] = None
         if primary is not None:
-            what, attempt = primary
             try:
-                out = self._retrying(attempt, what=what, deadline=deadline, cancel=cancel)
+                out = self._retrying(primary, what=mode, deadline=deadline, cancel=cancel)
             except (StreamCancelled, KernelError):
                 # a kernel that fails to build or launch is a broken build
                 # or device, not a transient fault: never a reason to land
                 # the dump on the host's legacy path
                 raise
             except Exception as exc:
-                if what in ("delta", "copy"):
+                if mode == "delta":
                     self._note_delta_failure(parent)
                 with self.stats.lock:
                     self.stats.fallback_dumps += 1
                 last_error = exc
-                fell_back = True
             else:
-                if what in ("delta", "copy"):
+                if mode == "delta":
                     self._note_delta_ok()
-                out.pred_frac = pred
-                out.hint_frac = hint
                 return out
-        else:
-            last_error = None
         # Degradation target: the legacy full path has no device kernels, no
         # stream engine, no delta chain — minimum moving parts.  It ignores
         # the (already blown) deadline: the goal now is to *land*.  If it
         # also fails, raise the legacy error chained on the primary one.
         try:
-            out = self._retrying(
+            return self._retrying(
                 lambda: self._legacy_attempt(ckpt_id, dump_src, parent, cancel),
                 what="legacy", deadline=None, cancel=cancel,
             )
@@ -1254,10 +1130,6 @@ class DeltaCR:
             if last_error is not None:
                 raise exc from last_error
             raise
-        out.pred_frac = pred
-        out.hint_frac = hint
-        out.fell_back = fell_back
-        return out
 
     def _retrying(
         self,
@@ -1267,11 +1139,11 @@ class DeltaCR:
         deadline: Optional[float],
         cancel: Optional[threading.Event],
     ) -> _EncodeOutcome:
-        """Run ``attempt`` up to ``1 + dump_retries`` times with exponential
+        """Run ``attempt`` up to ``1 + policy.retries`` times with exponential
         backoff.  Each attempt is transactional (rolls back its chunk refs on
         failure), so retrying is always safe.  A blown deadline stops the
         retry loop — the caller degrades instead of burning more wall time."""
-        attempts = self.dump_retries + 1
+        attempts = self.policy.retries + 1
         last: Optional[Exception] = None
         for i in range(attempts):
             if cancel is not None and cancel.is_set():
@@ -1290,7 +1162,7 @@ class DeltaCR:
                 if i + 1 < attempts:
                     with self.stats.lock:
                         self.stats.dump_retries += 1
-                    time.sleep(self.retry_backoff_s * (2 ** i))
+                    time.sleep(self.policy.retry_backoff_s * (2 ** i))
         assert last is not None
         raise last
 
@@ -1301,9 +1173,7 @@ class DeltaCR:
         priority: str,
         cancel: Optional[threading.Event],
         deadline: Optional[float],
-        *,
-        use_base: bool = True,
-        parent_fork: Optional[ForkableState] = None,
+        parent_fork: Optional[ForkableState],
     ) -> _EncodeOutcome:
         gen = dump_src.delta_generation(self.store.chunk_bytes)  # type: ignore[attr-defined]
         deadline_evt: Optional[threading.Event] = None
@@ -1325,7 +1195,7 @@ class DeltaCR:
         try:
             res = self.pipeline.encode_generation(  # type: ignore[union-attr]
                 gen, parent, cancel=eff_cancel, priority=priority,
-                use_base=use_base, parent_state=parent_fork,
+                parent_state=parent_fork,
             )
         except StreamCancelled:
             if cancel is not None and cancel.is_set():
@@ -1341,7 +1211,7 @@ class DeltaCR:
         return _EncodeOutcome(
             entries=res.entries,
             dirtied=res.dirtied,
-            mode="delta" if use_base else "copy",
+            mode="delta",
             anchor_views=gen.views,
             clean_keys=res.clean_keys,
             kernel_keys=res.kernel_keys,
@@ -1396,7 +1266,7 @@ class DeltaCR:
         if not self._degraded:
             return False
         self._degraded_skips += 1
-        if self._degraded_skips % self.degraded_probe_every == 0:
+        if self._degraded_skips % self.policy.degraded_probe_every == 0:
             return False                 # probe: try the delta path again
         with self.stats.lock:
             self.stats.degraded_dumps += 1
@@ -1409,7 +1279,7 @@ class DeltaCR:
 
     def _note_delta_failure(self, parent: Optional[DumpImage]) -> None:
         self._delta_failures += 1
-        if self._delta_failures >= self.delta_fail_threshold:
+        if self._delta_failures >= self.policy.delta_fail_threshold:
             self._degraded = True
         # The generation this dump diffed against may itself be the poison
         # (a corrupt anchor grid reproduces the failure on every retry):
@@ -1734,14 +1604,7 @@ class DeltaCR:
                 "degraded_dumps": self.stats.degraded_dumps,
                 "deadline_trips": self.stats.deadline_trips,
                 "cancelled_dumps": self.stats.cancelled_dumps,
-                # adaptive-mode observability
                 "mode_histogram": dict(self.stats.mode_dumps),
-                "dirty_pred_mae": (
-                    self.stats.pred_err_sum / self.stats.pred_err_n
-                    if self.stats.pred_err_n
-                    else None
-                ),
-                "dirty_pred_samples": self.stats.pred_err_n,
                 # shard-native dump observability
                 "sharded_dumps": self.stats.sharded_dumps,
                 "shard_parts": self.stats.shard_parts,
@@ -1752,7 +1615,6 @@ class DeltaCR:
             from ..dist import shard_dump as _sd
 
             h["shards"] = _sd.fetch_stats()
-        h["selector"] = self.selector.snapshot()
         if self.pipeline is not None:
             h["fused_checksum_mismatches"] = self.pipeline.fused_checksum_mismatches
         h["degraded"] = self._degraded

@@ -559,15 +559,6 @@ class ShardedTensorState:
     def dirty_tracking_base(self) -> Optional[int]:
         return self._dirty_base if self._dirty is not None else None
 
-    def dirty_fraction_hint(self) -> Optional[float]:
-        if self._dirty is None:
-            return None
-        total = sum(int(a.nbytes) for a in self._arrays.values())
-        if total <= 0:
-            return 0.0
-        dirty = sum(int(self._arrays[k].nbytes) for k in self._dirty if k in self._arrays)
-        return min(dirty / total, 1.0)
-
     # -- ForkableState ----------------------------------------------------
     def fork(self) -> "ShardedTensorState":
         clone = ShardedTensorState(self._arrays)

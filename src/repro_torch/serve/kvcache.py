@@ -643,35 +643,6 @@ class PagedSession:
     def dirty_tracking_base(self):
         return self._dirty_base if self._dirty_pages is not None else None
 
-    def _extras_nbytes(self) -> Dict[str, int]:
-        """Per-top-level-key extras byte sizes, from ``nbytes`` alone."""
-
-        def size(val: Any) -> int:
-            if isinstance(val, dict):
-                return sum(size(v) for v in val.values())
-            nbytes = getattr(val, "nbytes", None)
-            if nbytes is not None:
-                return int(nbytes)
-            return int(np.asarray(val).nbytes)
-
-        return {name: size(val) for name, val in self.extras.items()}
-
-    def dirty_fraction_hint(self) -> Optional[float]:
-        """Byte-weighted fraction of the session's dumpable state (active KV
-        pages + extras) written since the last mark-clean; None when
-        tracking is invalid."""
-        if self._dirty_pages is None or self._dirty_extras is None:
-            return None
-        n = self.n_pages
-        bpp = self.pool.bytes_per_page()
-        sizes = self._extras_nbytes()
-        total = n * bpp + sum(sizes.values())
-        if total <= 0:
-            return 0.0
-        dirty = bpp * sum(1 for pos in self._dirty_pages if pos < n)
-        dirty += sum(sizes.get(key, 0) for key in self._dirty_extras)
-        return min(dirty / total, 1.0)
-
     # ------------------------------------------------------- ForkableState
     def fork(self) -> "PagedSession":
         # under the pool lock: an async warm of this session swaps table

@@ -30,6 +30,7 @@ from repro_torch.core import (
     ChunkStore,
     CowArrayState,
     DeltaCR,
+    DumpPolicy,
     FaultError,
     RecoverError,
     faults,
@@ -111,7 +112,7 @@ def test_randomized_faults_land_bit_identical_or_abort(seed):
     plan = faults.FaultPlan.randomized(seed, kill_ok=True)
     state = _mk_state(seed)
     cr = DeltaCR(restore_fn=_restore, chunk_bytes=256, template_pool_size=4,
-                 retry_backoff_s=0.0)
+                 policy=DumpPolicy(retry_backoff_s=0.0))
     expected = {}
     submitted = []
     with faults.inject(plan):
@@ -155,8 +156,8 @@ def test_randomized_faults_land_bit_identical_or_abort(seed):
 @pytest.mark.timeout(60)
 def test_delta_failure_falls_back_to_legacy_then_degrades_and_probes():
     cr = DeltaCR(restore_fn=_restore, chunk_bytes=256, template_pool_size=8,
-                 dump_retries=1, retry_backoff_s=0.0,
-                 delta_fail_threshold=1, degraded_probe_every=3)
+                 policy=DumpPolicy(retries=1, retry_backoff_s=0.0,
+                                   delta_fail_threshold=1, degraded_probe_every=3))
     s = _mk_state(7)
     expected = {}
 
@@ -173,7 +174,7 @@ def test_delta_failure_falls_back_to_legacy_then_degrades_and_probes():
     assert anchored is not None
     cr.pipeline.release_record(anchored)
 
-    # both delta attempts fail (dump_retries=1 -> 2 attempts); the third
+    # both delta attempts fail (retries=1 -> 2 attempts); the third
     # fire-point hit is the legacy attempt, which the plan leaves alone
     with faults.inject(faults.FaultPlan().add("dump.worker", after=1, times=2)):
         img2 = ckpt(2, 1)
@@ -210,7 +211,7 @@ def test_drain_pool_faults_fall_back_without_partial_commit():
     the streamed delta attempt each time; the legacy path lands the dump."""
     cfg = StreamConfig(window_bytes=1024, min_windows=2)
     cr = DeltaCR(restore_fn=_restore, chunk_bytes=256, template_pool_size=4,
-                 dump_retries=1, retry_backoff_s=0.0, stream_config=cfg)
+                 policy=DumpPolicy(retries=1, retry_backoff_s=0.0, stream_config=cfg))
     s = _mk_state(5, n=4096)                         # 16 KiB/tensor: streams
     _mutate(s, 1)
     want = _snapshot(s)
@@ -232,7 +233,7 @@ def test_drain_pool_faults_fall_back_without_partial_commit():
 @pytest.mark.timeout(60)
 def test_worker_death_respawns_and_queued_dumps_survive():
     cr = DeltaCR(restore_fn=_restore, chunk_bytes=256, template_pool_size=8,
-                 retry_backoff_s=0.0)
+                 policy=DumpPolicy(retry_backoff_s=0.0))
     s = _mk_state(9)
     expected = {}
     with faults.inject(faults.FaultPlan().add("dump.worker", action="kill")):

@@ -211,6 +211,30 @@ def test_a_digest_mode_parent_image_is_never_diffed_against():
         cr.shutdown()
 
 
+def test_a_copy_mode_parent_image_is_diffed_against():
+    """A parent image recorded as ``"copy"`` (the JAX package's
+    straight-copy mode, as a snapshot it saved brings one to a recovered
+    engine) is a pipeline image: its child diffs against the carried fork."""
+    arrays = _arrays(np.random.default_rng(5))
+    cr = DeltaCR(restore_fn=lambda p: CowArrayState(dict(p)), chunk_bytes=CHUNK,
+                 policy=DumpPolicy(**POLICY), async_warm=False)
+    try:
+        s = CowArrayState({k: v.copy() for k, v in arrays.items()})
+        cr.checkpoint(s, 1, None)
+        cr.wait_dumps()
+        cr.dump_future(1).result().mode = "copy"
+        _host_write(s, "heap", 8, np.full(16, 3, np.uint8))
+        run = trace.new_run()
+        with trace.scope(run):
+            cr.checkpoint(s, 2, 1)
+        cr.wait_dumps()
+        counters = trace.snapshot(run)["counters"]
+        assert counters.get("dump.parent_fork") == 1 and counters.get("dump.base_miss", 0) == 0
+        assert cr.dump_future(2).result().mode == "delta"
+    finally:
+        cr.shutdown()
+
+
 # ---------------------------------------------------------------------------
 # the carried fork's lifecycle over a paged session
 # ---------------------------------------------------------------------------

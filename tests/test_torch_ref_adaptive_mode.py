@@ -1,29 +1,18 @@
-"""Adaptive dump-mode engine: auto's per-dump selection is bit-identical to
-every forced mode, the fused kernel path matches the unfused one
-chunk-for-chunk, prediction telemetry lands on images/health, and faults on
-the fused path ride the transactional retry/fallback plane."""
+"""The delta dump path's kernel and tracking details: a paged session's
+extras are dirty-tracked key by key, the fused kernel path matches the
+unfused one chunk-for-chunk, and faults on the fused path ride the
+transactional retry/fallback plane."""
 import pytest
 
 pytest.importorskip("torch")
 
 import numpy as np
-from hypothesis import given, settings, strategies as st
 
-from repro_torch.core import (
-    CowArrayState,
-    DeltaCR,
-    DumpPolicy,
-    FaultPlan,
-    dirty_fraction_hint,
-)
+from repro_torch.core import DeltaCR, DumpPolicy, FaultPlan
 from repro_torch.core import faults
 from repro_torch.core.delta_pipeline import ChunkedView, DeltaGeneration
 
 CHUNK = 256
-
-
-def _restore(payload):
-    return CowArrayState({k: v.copy() for k, v in payload.items()})
 
 
 def _payload_of(cr, ckpt_id):
@@ -34,172 +23,9 @@ def _payload_of(cr, ckpt_id):
     }, image
 
 
-def _mk_state(seed, n_keys=3, n=2048):
-    rng = np.random.default_rng(seed)
-    return CowArrayState(
-        {f"k{i}": rng.standard_normal(n).astype(np.float32) for i in range(n_keys)}
-    )
-
-
-def _run_chain(cr, seed, dirty_frac, steps=4):
-    """Checkpoint chain with a controlled per-step dirty fraction."""
-    rng = np.random.default_rng(seed)
-    s = _mk_state(seed)
-    cr.checkpoint(s, 1, None)
-    for step in range(2, 2 + steps):
-        for key in list(s.keys()):
-            if rng.random() < dirty_frac:
-                lo = int(rng.integers(0, 1024))
-                s.mutate(key, lambda a, lo=lo, v=float(step): a.__setitem__(
-                    slice(lo, lo + 64), v))
-        cr.checkpoint(s, step, step - 1)
-    cr.wait_dumps()
-    return 1 + steps
-
-
 # ---------------------------------------------------------------------------
-# tentpole property: auto is bit-identical to every forced mode
+# dirty tracking of a paged session's extras
 # ---------------------------------------------------------------------------
-
-
-@settings(max_examples=5, deadline=None)
-@given(st.integers(0, 10_000), st.floats(0.0, 1.0))
-def test_auto_bit_identical_to_every_forced_mode(seed, dirty_frac):
-    crs = {
-        mode: DeltaCR(restore_fn=_restore, chunk_bytes=CHUNK,
-                      policy=DumpPolicy(mode=mode))
-        for mode in ("auto", "delta", "digest", "legacy")
-    }
-    try:
-        last = {m: _run_chain(cr, seed, dirty_frac) for m, cr in crs.items()}
-        n_ckpts = last["auto"]
-        for ckpt in range(1, n_ckpts + 1):
-            ref_payload, _ = _payload_of(crs["legacy"], ckpt)
-            for mode in ("auto", "delta", "digest"):
-                payload, img = _payload_of(crs[mode], ckpt)
-                assert sorted(payload) == sorted(ref_payload)
-                for name in payload:
-                    np.testing.assert_array_equal(payload[name], ref_payload[name])
-    finally:
-        for cr in crs.values():
-            cr.shutdown()
-
-
-def test_auto_flips_to_copy_once_calibrated():
-    """At a measured ~100% dirty fraction the selector flips later dumps to
-    the straight-copy path; images stay bit-identical to forced delta."""
-    cr = DeltaCR(restore_fn=_restore, chunk_bytes=CHUNK)
-    ref = DeltaCR(restore_fn=_restore, chunk_bytes=CHUNK,
-                  policy=DumpPolicy(mode="delta"))
-    try:
-        for c in (cr, ref):
-            rng = np.random.default_rng(5)
-            s = _mk_state(5)
-            c.checkpoint(s, 1, None)
-            for step in range(2, 6):
-                for key in list(s.keys()):       # every chunk of every key
-                    s.mutate(key, lambda a, v=float(step): a.__setitem__(
-                        slice(None), a[:] + v))
-                c.checkpoint(s, step, step - 1)
-            c.wait_dumps()
-        modes = [cr.dump_future(c).result().mode for c in range(1, 6)]
-        assert modes[0] == "delta"               # parent-less: no prediction
-        assert modes[1] == "delta"               # uncalibrated: default holds
-        assert "copy" in modes[2:]               # calibrated 1.0 → crossover
-        for ckpt in range(1, 6):
-            pa, _ = _payload_of(cr, ckpt)
-            pb, _ = _payload_of(ref, ckpt)
-            for name in pa:
-                np.testing.assert_array_equal(pa[name], pb[name])
-        # observability: the flip is visible end to end
-        h = cr.health()
-        assert h["mode_histogram"].get("copy", 0) >= 1
-        assert h["mode_histogram"].get("delta", 0) >= 2
-        assert h["dirty_pred_samples"] >= 1
-        assert h["dirty_pred_mae"] is not None and h["dirty_pred_mae"] < 0.2
-        assert h["selector"]["hint_ratio_ewma"] == pytest.approx(1.0, abs=0.05)
-    finally:
-        cr.shutdown()
-        ref.shutdown()
-
-
-def test_low_dirty_fraction_stays_on_delta():
-    cr = DeltaCR(restore_fn=_restore, chunk_bytes=CHUNK)
-    try:
-        rng = np.random.default_rng(11)
-        s = _mk_state(11, n_keys=6, n=4096)
-        cr.checkpoint(s, 1, None)
-        for step in range(2, 7):                  # one slice of one key/step
-            key = f"k{int(rng.integers(6))}"
-            s.mutate(key, lambda a, v=float(step): a.__setitem__(slice(0, 32), v))
-            cr.checkpoint(s, step, step - 1)
-        cr.wait_dumps()
-        for ckpt in range(2, 7):
-            img = cr.dump_future(ckpt).result()
-            assert img.mode == "delta"
-            assert img.actual_dirty_frac is not None and img.actual_dirty_frac < 0.3
-    finally:
-        cr.shutdown()
-
-
-def test_prediction_telemetry_on_images():
-    cr = DeltaCR(restore_fn=_restore, chunk_bytes=CHUNK)
-    try:
-        s = _mk_state(3)
-        cr.checkpoint(s, 1, None)
-        s.mutate("k0", lambda a: a.__setitem__(slice(0, 64), 9.0))
-        cr.checkpoint(s, 2, 1)
-        s.mutate("k1", lambda a: a.__setitem__(slice(0, 64), 8.0))
-        cr.checkpoint(s, 3, 2)
-        cr.wait_dumps()
-        img1 = cr.dump_future(1).result()
-        assert img1.predicted_dirty_frac is None     # parent-less
-        assert img1.actual_dirty_frac is None
-        img3 = cr.dump_future(3).result()
-        assert img3.actual_dirty_frac is not None and 0 < img3.actual_dirty_frac < 1
-        assert img3.predicted_dirty_frac is not None  # ckpt2 calibrated the ratio
-    finally:
-        cr.shutdown()
-
-
-# ---------------------------------------------------------------------------
-# dirty-fraction hints
-# ---------------------------------------------------------------------------
-
-
-def test_cow_state_hint_is_byte_weighted():
-    s = CowArrayState({
-        "big": np.zeros(3 * CHUNK, np.uint8),     # 768 bytes
-        "small": np.zeros(CHUNK, np.uint8),       # 256 bytes
-    })
-    assert dirty_fraction_hint(s) is None         # tracking not started
-    s.reset_dirty_tracking(1)
-    assert dirty_fraction_hint(s) == 0.0
-    s.mutate("small", lambda a: a.__setitem__(0, 1))
-    assert dirty_fraction_hint(s) == pytest.approx(0.25)
-    s.mutate("big", lambda a: a.__setitem__(0, 1))
-    assert dirty_fraction_hint(s) == pytest.approx(1.0)
-    s.invalidate_dirty_tracking()
-    assert dirty_fraction_hint(s) is None
-
-
-def test_paged_session_hint_counts_active_dirty_pages():
-    from repro_torch.configs import get_config
-    from repro_torch.serve import PagePool, PagedSession
-
-    cfg = get_config("olmo-1b-tiny")
-    pool = PagePool(cfg, num_pages=32, page_size=4, max_pages_per_session=8, device="cpu")
-    sess = PagedSession(pool)
-    sess.ensure_writable(extra_tokens=8)          # 2 pages
-    sess.seq_len = 8
-    assert sess.dirty_fraction_hint() is None     # tracking not started
-    sess.reset_dirty_tracking(1)
-    assert sess.dirty_fraction_hint() == 0.0
-    sess.ensure_writable(extra_tokens=1)          # tail page CoW → dirty
-    sess.seq_len += 1
-    hint = sess.dirty_fraction_hint()
-    assert hint is not None and 0.0 < hint <= 1.0
-    sess.release()
 
 
 def test_paged_session_extras_tracking_key_granular():
@@ -257,26 +83,6 @@ def test_tracked_extras_covers_every_write_path():
     sess.release()
 
 
-def test_recurrent_only_session_hint_reflects_extras_churn():
-    """Zero attention pages must not pin the hint to 0.0 — recurrent-only
-    sessions (mamba/xlstm) carry all their state in extras."""
-    from repro_torch.configs import get_config
-    from repro_torch.serve import PagePool, PagedSession
-
-    cfg = get_config("olmo-1b-tiny")
-    pool = PagePool(cfg, num_pages=8, page_size=4, max_pages_per_session=4, device="cpu")
-    sess = PagedSession(pool)
-    sess.extras["stage0/mamba"] = {"conv": np.zeros(256, np.float32)}
-    sess.extras["seed"] = np.asarray([1], np.int64)
-    sess.reset_dirty_tracking(1)
-    assert sess.n_pages == 0
-    assert sess.dirty_fraction_hint() == 0.0
-    sess.extras["stage0/mamba"] = {"conv": np.ones(256, np.float32)}
-    hint = sess.dirty_fraction_hint()
-    assert hint == pytest.approx(1024 / (1024 + 8))
-    sess.release()
-
-
 # ---------------------------------------------------------------------------
 # fused vs unfused device path: chunk-for-chunk parity
 # ---------------------------------------------------------------------------
@@ -317,13 +123,6 @@ class DeviceState:
 
     def dirty_tracking_base(self):
         return self._base if self._dirty is not None else None
-
-    def dirty_fraction_hint(self):
-        if self._dirty is None:
-            return None
-        total = sum(a.nbytes for a in self.arrays.values())
-        dirty = sum(self.arrays[k].nbytes for k in self._dirty if k in self.arrays)
-        return dirty / total if total else 0.0
 
     def write(self, key, sl, val):
         self.arrays[key][sl] = val

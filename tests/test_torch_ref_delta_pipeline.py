@@ -15,6 +15,7 @@ from repro_torch.core import (
     DeltaCR,
     DeltaDumpPipeline,
     DeltaFS,
+    DumpPolicy,
     Sandbox,
     StateManager,
 )
@@ -112,8 +113,8 @@ def _run_workload(cr, seed=3):
 
 
 def test_pipeline_images_bit_identical_to_legacy():
-    cr_new = DeltaCR(restore_fn=_restore, chunk_bytes=1024, dump_mode="auto")
-    cr_old = DeltaCR(restore_fn=_restore, chunk_bytes=1024, dump_mode="legacy")
+    cr_new = DeltaCR(restore_fn=_restore, chunk_bytes=1024)
+    cr_old = DeltaCR(restore_fn=_restore, chunk_bytes=1024, policy=DumpPolicy(mode="legacy"))
     _run_workload(cr_new)
     _run_workload(cr_old)
     for ckpt in range(1, 7):
@@ -155,7 +156,7 @@ def test_dirty_ratio_sweep_and_overflow(dirty_chunks):
     cr = DeltaCR(
         restore_fn=_restore,
         chunk_bytes=cb,
-        capacity_frac=0.25,              # capacity 8 → 16/32 overflow to full
+        policy=DumpPolicy(capacity_frac=0.25),   # capacity 8 → 16/32 overflow to full
         template_pool_size=1,
     )
     base = np.zeros(n_chunks * cb, np.uint8)

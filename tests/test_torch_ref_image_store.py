@@ -15,6 +15,7 @@ from repro_torch.core import (
     CowArrayState,
     DeltaCR,
     DeltaFS,
+    DumpPolicy,
     Sandbox,
     SandboxTree,
     StateManager,
@@ -222,7 +223,8 @@ def test_drop_cancels_queued_digest_dump():
     """The digest (non-pipeline) path also resolves a dropped dump
     transactionally instead of completing into a dead image."""
     cr = DeltaCR(
-        store=ChunkStore(chunk_bytes=4096), restore_fn=_restore, dump_mode="digest"
+        store=ChunkStore(chunk_bytes=4096), restore_fn=_restore,
+        policy=DumpPolicy(mode="digest"),
     )
     s = _mk_state(seed=4, n_keys=6)
     snap = cr.store.stats.snapshot()

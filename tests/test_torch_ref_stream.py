@@ -15,6 +15,7 @@ from repro_torch.core import (
     CowArrayState,
     DeltaCR,
     DumpGate,
+    DumpPolicy,
     StreamCancelled,
     StreamConfig,
 )
@@ -37,8 +38,10 @@ def _mk_cr(stream: bool, **kw):
         store=ChunkStore(chunk_bytes=4096),
         restore_fn=_restore,
         chunk_bytes=4096,
-        stream=stream,
-        stream_config=StreamConfig(window_bytes=24 * 1024, min_windows=2),
+        policy=DumpPolicy(
+            stream=stream,
+            stream_config=StreamConfig(window_bytes=24 * 1024, min_windows=2),
+        ),
         **kw,
     )
 
@@ -104,15 +107,14 @@ def test_adaptive_windowing_images_identical_to_sync():
         store=ChunkStore(chunk_bytes=4096),
         restore_fn=_restore,
         chunk_bytes=4096,
-        stream=True,
-        stream_config=StreamConfig(
+        policy=DumpPolicy(stream_config=StreamConfig(
             window_bytes=24 * 1024,
             min_windows=2,
             adaptive=True,
             target_window_ms=0.05,      # tiny target: forces real adaptation
             min_window_bytes=8 * 1024,
             max_window_bytes=1 << 20,
-        ),
+        )),
     )
     _run_chain(cr_sync)
     _run_chain(cr_adapt)
@@ -169,8 +171,9 @@ def test_adaptive_windowing_tracks_measured_rate():
         store=ChunkStore(chunk_bytes=4096),
         restore_fn=_restore,
         chunk_bytes=4096,
-        stream=True,
-        stream_config=StreamConfig(window_bytes=24 * 1024, min_windows=2, adaptive=True),
+        policy=DumpPolicy(
+            stream_config=StreamConfig(window_bytes=24 * 1024, min_windows=2, adaptive=True),
+        ),
     )
     _run_chain(cr)
     streamed = [cr.dump_future(c).result() for c in range(1, 5)]
@@ -580,7 +583,7 @@ def _mk_sched(cfg=None, pool_pages=64):
         store=ChunkStore(chunk_bytes=4096),
         restore_fn=lambda p: _FakeSession(pool, _restore(p)),
         chunk_bytes=4096,
-        stream_config=StreamConfig(window_bytes=24 * 1024, min_windows=2),
+        policy=DumpPolicy(stream_config=StreamConfig(window_bytes=24 * 1024, min_windows=2)),
     )
     cfg = cfg if cfg is not None else SchedulerConfig(
         dump_demote_poll_ms=1.0, dump_demote_max_ms=10.0

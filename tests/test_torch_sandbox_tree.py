@@ -492,9 +492,12 @@ def _world(pkg, tensor: bool):
     # No async warm: the reference's CowArrayState.fork can race a warm of
     # the same state on the warm thread and lose a refcount, which makes its
     # images nondeterministic (the port serializes the two; see
-    # test_fork_racing_an_async_warm_keeps_refcounts).
+    # test_fork_racing_an_async_warm_keeps_refcounts).  The reference is
+    # pinned to "delta", the port's default: its own default, "auto",
+    # records straight-copy images here, a mode the port does not have.
+    policy = J.DumpPolicy(mode="delta") if pkg is J else None
     cr = pkg.DeltaCR(store=fs.store, restore_fn=restore_fn, template_pool_size=64,
-                     async_warm=False)
+                     async_warm=False, policy=policy)
     _dump_inline(cr)
     sm = pkg.StateManager(pkg.Sandbox(fs, proc), cr)
 

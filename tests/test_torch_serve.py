@@ -14,6 +14,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -67,8 +69,15 @@ def _close(got, want):
 # cross-package: the same weights, prompts and sampling in both engines
 # ---------------------------------------------------------------------------
 def test_configs_resolve_as_in_the_reference():
+    """Every field as in the reference, but qwen3-14b's ``source``: the
+    port names Qwen3-14B, whose widths both packages hold; the reference
+    names Qwen3-8B."""
     for name in ("qwen3-14b", "qwen3-14b-tiny", "olmo-1b-tiny"):
-        assert repr(get_config(name)) == repr(j_get_config(name))
+        cfg, ref = get_config(name), j_get_config(name)
+        if name.startswith("qwen3-14b"):
+            assert (cfg.source, ref.source) == ("hf:Qwen/Qwen3-14B; hf", "hf:Qwen/Qwen3-8B; hf")
+            cfg = dataclasses.replace(cfg, source=ref.source)
+        assert repr(cfg) == repr(ref)
 
 
 def test_params_round_trip_through_numpy(rig):

@@ -223,15 +223,18 @@ def test_sharded_state_protocol_and_hint():
         {"a": torch.from_numpy(rng.standard_normal(1024).astype(np.float32)),
          "b": torch.from_numpy(rng.standard_normal(256).astype(np.float32))}
     )
-    assert s.dirty_fraction_hint() is None
+    def dirty(state):
+        return state.delta_generation(256).dirty_keys
+
+    assert dirty(s) is None
     s.reset_dirty_tracking(7)
-    assert s.dirty_tracking_base() == 7 and s.dirty_fraction_hint() == 0.0
+    assert s.dirty_tracking_base() == 7 and dirty(s) == frozenset()
     s.set("b", s.get("b") + 1)
-    assert s.dirty_fraction_hint() == pytest.approx(256 / 1280)
+    assert dirty(s) == {"b"}
     f = s.fork()
-    assert f.dirty_fraction_hint() == pytest.approx(256 / 1280)
+    assert dirty(f) == {"b"}
     f.invalidate_dirty_tracking()
-    assert f.dirty_fraction_hint() is None and s.dirty_fraction_hint() is not None
+    assert dirty(f) is None and dirty(s) == {"b"}
     with pytest.raises(TypeError):
         s.set("c", np.zeros(4))
 
