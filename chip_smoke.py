@@ -30,9 +30,11 @@ Phases:
    against their plain versions at the served qwen3-14b pool and at the edge
    sweeps, ``paged_attention`` within 2e-5 (fp32) / 2e-2 (bf16) at the served
    decode shape, the sweep cases, the length edges (0 gives exactly 0) and
-   the edges of its cluster split, then timed like phase 3 (also at B = 1,
-   and ``page_copy_stacked`` over one pool and over the K and V pools in
-   one launch, as a materialize runs it);
+   the edges of its cluster split, ``moe_decode`` within 2e-2 (bf16) at
+   Qwen3-30B-A3B's and Jamba2-Mini's MoE layers at B = 1-4, then timed like
+   phase 3 (also at B = 1, and ``page_copy_stacked`` over one pool and over
+   the K and V pools in one launch, as a materialize runs it; ``moe_decode``
+   beside the all-experts ``bmm`` it replaced);
 6. serving path — ``Engine`` over the whole ``qwen3-14b`` config (random bf16
    weights from a seed, 40 layers; the model is built once and shared with
    phase 7) and a 1024-page pool: prefill of a 2011-token prompt, decode, a
@@ -166,6 +168,13 @@ Phases:
    every step after its first; step ms of each mode, the capture ms, the
    graph pool's bytes, peak memory and allocation retries, and the
    reserved bytes before and after ``Trainer.close()``;
+16. dropless MoE — Qwen3-30B-A3B's widths, dropless and renormalized
+   (top 8 of 128 experts), in 4 full-width layers in float32: an ``Engine``
+   on the card (graphed) and one on the CPU over the same weights decode a
+   prompt's 4 forks at B = 1-4, the card's logits within 2e-3 of the
+   CPU's, the routed experts equal, ``moe_decode`` launched 3 times per
+   layer and step (these launches are the report's); then a B = 3 step
+   profiled;
 13. dry run — ``repro_torch.launch.dryrun``: (13a) ``run_cell`` traces
    olmo-1b ``train_4k`` on a (16, 16) logical mesh of ``meta`` ranks and
    qwen3-14b ``decode_32k`` on (16, 16) and (2, 16, 16), and prints each
@@ -180,8 +189,9 @@ Phases:
 5. report — one JSON line per kernel, the ``{"kernels": [...]}`` line, the
    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 
+
 Phases run in the order 1, 2, 3, 3b, 4, 6, 14, 7, 8, 11, 4b, 9a, 12, 9b, 9c,
-9d, 10, 15, 10b, 13, 5.
+9d, 10, 15, 10b, 16, 13, 5.
 
 Any failure exits non-zero before the last line is printed.  The script
 imports nothing of JAX or of the JAX package.
@@ -813,6 +823,114 @@ def time_serving_kernels(device) -> dict:
         "library_note": "no single PyTorch call reads K/V through a page table",
         "bound_ms": bound_ms(2 * lens1[0] * row + 2 * q.numel() * 2 + 4 * pages1 + 4),
     }
+    return out
+
+
+# the decode MoE at the served layers: Qwen3-30B-A3B's (128 experts of (2048,
+# 768), top 8 renormalized) and Jamba2-Mini's (16 experts of (4096, 14336), top
+# 2 unrenormalized, experts 0-7 held); (E, K, d, f, held, renormalize)
+MOE_LAYERS = {"qwen3-30b-a3b": (128, 8, 2048, 768, None, True),
+              "jamba2-mini": (16, 2, 4096, 14336, (0, 8), False)}
+MOE_TOL = 2e-2
+MOE_TIMED_B = 3                        # the cells' mean batch width
+
+
+def _moe_inputs(gen, B, layer, device):
+    """A layer's held experts in bf16, rows x (B, d) and their routing."""
+    import torch
+
+    E, K, d, f, held, renormalize = layer
+    lo, hi = held or (0, E)
+
+    def w(shape, fan):
+        return torch.empty(shape, dtype=torch.bfloat16, device=device).normal_(
+            0.0, fan ** -0.5, generator=gen)
+
+    experts = (w((hi - lo, d, f), d), w((hi - lo, d, f), d), w((hi - lo, f, d), f))
+    x = torch.randn((B, d), generator=gen, device=device).to(torch.bfloat16)
+    gates, ids = torch.topk(torch.softmax(torch.randn((B, E), generator=gen, device=device), -1),
+                            K, dim=-1)
+    if renormalize:
+        gates = gates / gates.sum(-1, keepdim=True)
+    return x, ids.to(torch.int32), gates, experts, (lo, hi)
+
+
+def _all_experts_moe(x, ids, gates, experts, held):
+    """The all-experts ``bmm`` decode that ``moe_decode`` replaced: every
+    row dispatched into one slot of every held expert, every expert run."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    B, d = x.shape
+    lo, hi = held
+    here = (ids >= lo) & (ids < hi)
+    flat_e = torch.where(here, ids.long() - lo, torch.zeros_like(ids, dtype=torch.int64))
+    flat_p = torch.zeros_like(flat_e)
+    disp = L._moe_dispatch(x[:, None], flat_e, flat_p, hi - lo, 1)
+    h = L._moe_expert_ffn(disp, *experts, "silu")
+    return L._moe_combine(h, flat_e, flat_p, gates[:, None], here, 1)[:, 0].to(x.dtype)
+
+
+def check_moe_kernels(device) -> dict:
+    """``moe_decode`` against its plain version at both served layers, B = 1-4
+    (max |error| over max(1, |plain|), bf16); returns the largest."""
+    import torch
+
+    from repro_torch.kernels import moe_decode
+    from repro_torch.kernels.moe_decode import moe_decode_ref
+
+    gen = torch.Generator(device=device).manual_seed(5151)
+    worst = 0.0
+    for layer in MOE_LAYERS.values():
+        for B in (1, 2, 3, 4):
+            x, ids, gates, experts, held = _moe_inputs(gen, B, layer, device)
+            got = moe_decode(x, ids, gates, *experts, held=held).float()
+            want = moe_decode_ref(x, ids, gates, *experts, held).float()
+            err = float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+            if not err <= MOE_TOL:
+                fail(f"moe_decode at {layer}, B={B}: error {err} > {MOE_TOL}")
+            worst = max(worst, err)
+            del experts
+    return {"moe_decode": worst}
+
+
+def time_moe_decode(device) -> dict:
+    """kernel / plain / all-experts ``bmm`` times of the decode MoE at both
+    served layers, B = ``MOE_TIMED_B``, with the bytes it must move: the
+    distinct routed held experts' matrices once, the rows in and out."""
+    import torch
+
+    from repro_torch.kernels import moe_decode
+    from repro_torch.kernels.moe_decode import expert_bytes, moe_decode_ref
+
+    gen = torch.Generator(device=device).manual_seed(5252)
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=device)
+    out = {}
+    for name, layer in MOE_LAYERS.items():
+        E, K, d, f, _, _ = layer
+        x, ids, gates, experts, held = _moe_inputs(gen, MOE_TIMED_B, layer, device)
+        lo, hi = held
+        read = len({e for e in ids.flatten().tolist() if lo <= e < hi})
+        cold, warm, clean = time_graph_ms(lambda: moe_decode(x, ids, gates, *experts, held=held),
+                                          flush=flush)
+        out["moe_decode" if name == "qwen3-30b-a3b" else f"moe_decode_{name}"] = {
+            "shape": [MOE_TIMED_B, E, K, d, f, hi - lo],
+            "experts_read": read,
+            "kernel_ms": cold,
+            "kernel_warm_ms": warm,
+            "kernel_cold_clean_ms": clean,
+            "plain_ms": time_ms(lambda: moe_decode_ref(x, ids, gates, *experts, held),
+                                flush=flush),
+            "library_ms": None,
+            "library_note": "no single PyTorch call; all_experts_bmm_ms is the path it replaced",
+            "all_experts_bmm_ms": time_graph_ms(
+                lambda: _all_experts_moe(x, ids, gates, experts, held), flush=flush)[0],
+            "bound_ms": bound_ms(read * expert_bytes(d, f, 2) + 2 * x.numel() * 2
+                                 + ids.numel() * 8),
+            "bound_all_experts_ms": bound_ms((hi - lo) * expert_bytes(d, f, 2)),
+        }
+        del experts
     return out
 
 
@@ -4659,6 +4777,114 @@ def dryrun_phase(device, card: str) -> None:
     say(f"[13 dry run] phase 13 ran {time.perf_counter() - t13:.1f} s (card: {card})")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: a dropless MoE's graphed decode through the Engine
+# ---------------------------------------------------------------------------
+DROPLESS_CONFIG = "qwen3-moe-30b-a3b"     # Qwen3-30B-A3B's widths, made dropless
+DROPLESS_PERIODS = 4                      # layers of its 48
+DROPLESS_PROMPT = 40
+DROPLESS_STEPS = 3                        # decode steps at each width B = 1-4
+DROPLESS_TOL = 2e-3                       # logits, float32 on both sides
+
+
+def dropless_config(periods: int = DROPLESS_PERIODS):
+    """Qwen3-30B-A3B as published (dropless, renormalized top 8 of 128
+    experts of width 768, hidden 2048) in ``periods`` full-width layers,
+    in float32 so that the card and the CPU can be held to one another."""
+    cfg = family_config(DROPLESS_CONFIG, periods)
+    return dataclasses.replace(cfg, name=f"{cfg.name}-dropless", moe_dropless=True,
+                               moe_renormalize=True, dtype="float32", param_dtype="float32")
+
+
+def run_dropless_path(device, *, cfg=None, prompt_len: int = DROPLESS_PROMPT,
+                      steps: int = DROPLESS_STEPS, seed: int = 0) -> dict:
+    """Phase 16: ``cfg`` (``dropless_config()``) with seeded weights (the embedding at
+    ``FAMILY_EMBED_STD``) served by an ``Engine`` on the card (graphed) and
+    by one on the CPU over a copy of the same weights (the decode MoE's
+    plain version).  A prompt is prefilled and forked 4 ways; the forks
+    decode ``steps`` steps at each width B = 1-4, the CPU's pending tokens
+    set to the card's after every step.  Gates: every step's logits within
+    ``DROPLESS_TOL`` of the CPU's, each step's distinct routed experts
+    equal to the CPU's and between K and B·K a layer, and ``moe_decode``
+    launched 3 times per MoE layer and step (counted from just before the
+    first decode step).  Then one B = 3 step replayed under the profiler.
+    Returns the launches, the largest logit difference, the experts read
+    a step by width and the profile.  On the CPU (a rehearsal at a tiny
+    ``cfg``) both sides run eager, and nothing is launched or profiled."""
+    import numpy as np
+    import torch
+
+    from repro_torch import trace
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine, PagePool
+
+    cfg = cfg or dropless_config()
+    on_card = torch.device(device).type == "cuda"
+    card = Model(cfg, device=device)
+    card.init(torch.Generator(device=device).manual_seed(seed))
+    card.params["embed"].mul_(FAMILY_EMBED_STD * cfg.d_model ** 0.5)
+
+    def to_cpu(t):
+        return {k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict) else t.cpu()
+
+    host = Model(cfg, device="cpu", params=to_cpu(card.params))
+    rng = np.random.default_rng(seed)
+    prompt = rng.integers(0, cfg.vocab_size, size=prompt_len).tolist()
+    actions = rng.choice(cfg.vocab_size, size=4, replace=False).tolist()
+    sides = []
+    for model, dev in ((card, device), (host, "cpu")):
+        pool = PagePool(cfg, num_pages=64, page_size=16, max_pages_per_session=8, device=dev)
+        eng = Engine(model, pool)
+        trunk = eng.new_session(prompt)
+        kids = [trunk.fork() for _ in actions]
+        for kid, a in zip(kids, actions):
+            kid.tokens[-1] = int(a)
+        sides.append((eng, trunk, kids))
+    (eng, trunk, kids), (h_eng, h_trunk, h_kids) = sides
+    if on_card and not eng.graphs:
+        raise AssertionError("the card's Engine runs eager")
+    n_moe = cfg.n_layers
+    worst, read, n_steps = 0.0, {}, 0
+    run = trace.new_run()
+    reset_launch_counts()
+    with trace.scope(run):
+        for B in (1, 2, 3, 4):
+            for _ in range(steps):
+                got = eng.step(kids[:B])
+                h_eng.step(h_kids[:B])
+                n_steps += 1
+                spans = [s for s in trace.snapshot(run)["spans"] if s.name == "engine.step"]
+                card_read, host_read = (s.attr["experts_read"] for s in spans[-2:])
+                if card_read != host_read:
+                    raise AssertionError(f"B={B}: the card's step read {card_read} experts, "
+                                         f"the CPU's {host_read}")
+                if not n_moe * cfg.top_k <= card_read <= n_moe * B * cfg.top_k:
+                    raise AssertionError(f"B={B}: {card_read} experts read over {n_moe} layers")
+                read.setdefault(B, []).append(card_read / n_moe)
+                for k, hk, tok in zip(kids, h_kids, got):
+                    diff = float(np.abs(k.extras["last_logits"] - hk.extras["last_logits"]).max())
+                    if not diff <= DROPLESS_TOL:
+                        raise AssertionError(f"B={B}: logits {diff} from the CPU's")
+                    worst = max(worst, diff)
+                    hk.tokens[-1] = tok
+    launches, profile = launch_counts(), None
+    if on_card:
+        want = 3 * n_moe * n_steps
+        if launches["moe_decode"] != want:
+            raise AssertionError(f"moe_decode launched {launches['moe_decode']} times, expected "
+                                 f"{want} (3 x {n_moe} layers x {n_steps} steps)")
+        profile = _profile_step(eng, kids[:3])
+    for sess in [trunk, h_trunk] + kids + h_kids:
+        sess.release()
+    return {"config": cfg.name, "layers": n_moe, "decode_steps": n_steps, "launches": launches,
+            "max_abs_logit_diff": worst,
+            "experts_read_per_layer": {B: statistics.mean(v) for B, v in read.items()},
+            "even_routing": {B: cfg.n_experts * (1 - (1 - cfg.top_k / cfg.n_experts) ** B)
+                             for B in read},
+            "profile_b3": profile}
+
+
 def main() -> int:
     src = ROOT / "src"
     if not (src / "repro_torch" / "kernels" / "csrc").is_dir():
@@ -4704,9 +4930,12 @@ def main() -> int:
 
     # -- phase 3b: the serving kernels against their plain versions, then times
     errs.update(check_serving_kernels(device))
+    errs.update(check_moe_kernels(device))
     say(f"[3b kernels] page copies bit-exact, paged_attention within "
-        f"{PA_TOL['float32']} (fp32) / {PA_TOL['bfloat16']} (bf16): {json.dumps(errs)}")
+        f"{PA_TOL['float32']} (fp32) / {PA_TOL['bfloat16']} (bf16), moe_decode within "
+        f"{MOE_TOL} (bf16): {json.dumps(errs)}")
     times.update(time_serving_kernels(device))
+    times.update(time_moe_decode(device))
     torch.cuda.empty_cache()
     card = f"{smi_line}"
 
@@ -5026,6 +5255,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- phase 16: a dropless MoE's graphed decode through the Engine (launch
+    #    counts from its first decode step)
+    t16 = time.perf_counter()
+    try:
+        dropless = run_dropless_path(device)
+    except AssertionError as exc:
+        fail(f"phase 16: {exc}")
+    launches["moe_decode"] += dropless["launches"]["moe_decode"]
+    say(f"[16 dropless moe] {json.dumps(dropless)} (card: {card})")
+    say(f"[16 dropless moe] {dropless['config']}: moe_decode launched "
+        f"{dropless['launches']['moe_decode']} times over {dropless['decode_steps']} graphed steps "
+        f"of {dropless['layers']} MoE layers; logits within {dropless['max_abs_logit_diff']} of "
+        f"the CPU's; phase 16 ran {time.perf_counter() - t16:.1f} s (card: {card})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- phase 13: the multi-pod dry run on meta tensors, checked against the card
     dryrun_phase(device, card)
 
@@ -5044,10 +5289,13 @@ def main() -> int:
                       "src/repro/kernels/page_copy.py:29"),
         "paged_attention": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                             "src/repro/kernels/paged_attention.py:101"),
+        "moe_decode": ("src/repro_torch/kernels/csrc/moe_decode.cu",
+                       "none: the JAX package's MoE decode runs every expert"),
     }
     for key, t in times.items():
         kname = next(k for k in meta if key == k or key.startswith(k + "_"))
-        extra = {k: t[k] for k in ("library_note", "bound_unique_ms", "clusters") if k in t}
+        extra = {k: t[k] for k in ("library_note", "bound_unique_ms", "clusters", "experts_read",
+                                   "all_experts_bmm_ms", "bound_all_experts_ms") if k in t}
         say(json.dumps({"name": key, "shape": t["shape"], "launches": launches[kname],
                         "kernel_ms": t["kernel_ms"], "kernel_warm_ms": t["kernel_warm_ms"],
                         "kernel_cold_clean_ms": t["kernel_cold_clean_ms"],

@@ -8,6 +8,8 @@
 * ``page_copy_stacked`` / ``page_copy`` — copy-on-write privatization of
   KV pool pages (the serving loop's CoW fault and async warm).
 * ``paged_attention`` — GQA decode attention through a page table.
+* ``moe_decode`` — a dropless MoE layer's decode step over the routed
+  experts only (no TPU counterpart; its plain version is in its module).
 
 Each kernel ships as ``csrc/<name>.cu`` plus a wrapper ``<name>.py`` that
 checks its inputs, launches on the current stream and counts launches
@@ -27,6 +29,7 @@ from .ops import (
     delta_fused,
     fused_encode,
     launch_counts,
+    moe_decode,
     page_copy,
     page_copy_stacked,
     paged_attention,
@@ -47,6 +50,7 @@ __all__ = [
     "delta_fused",
     "fused_encode",
     "launch_counts",
+    "moe_decode",
     "page_copy",
     "page_copy_stacked",
     "paged_attention",

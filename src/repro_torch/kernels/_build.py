@@ -59,6 +59,7 @@ SIGNATURES = {
     ],
     "repro_paged_attention_clusters": [_I64, _I64, _I64, _c.c_int, _P],
     "repro_launch_floor": [_P],
+    "repro_moe_decode": [_P] * 9 + [_I64] * 7 + [_c.c_int, _P],
 }
 
 

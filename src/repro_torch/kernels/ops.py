@@ -4,10 +4,12 @@ Routing is by the tensor's device, per call:
 
 * a **CUDA** tensor goes to the hand-written kernel (``delta_diff.py``,
   ``delta_fused.py``, ``delta_apply.py``, ``page_copy.py``,
-  ``paged_attention.py``), which launches on the current stream or
-  raises.  Nothing sends a CUDA tensor to the plain version.
+  ``paged_attention.py``, ``moe_decode.py``), which launches on the
+  current stream or raises.  Nothing sends a CUDA tensor to the plain
+  version.
 * a **CPU** tensor goes to the plain PyTorch version in ``ref.py``, which
-  is bit-identical to the JAX package's jnp oracles.
+  is bit-identical to the JAX package's jnp oracles (``moe_decode``, which
+  has no JAX counterpart, keeps its plain version in its own module).
 
 Also here: the torch-op compaction (``delta_compact``), the block-native
 diff of one shard part (``shard_block_encode``, torch ops: the JAX
@@ -27,12 +29,14 @@ from . import ref as _ref
 from .delta_apply import delta_apply
 from .delta_diff import delta_diff
 from .delta_fused import delta_fused
+from .moe_decode import moe_decode
 from .page_copy import page_copy, page_copy_stacked
 from .paged_attention import paged_attention
 from .ref import CHECKSUM_LANES
 
 __all__ = [
     "paged_attention",
+    "moe_decode",
     "page_copy",
     "page_copy_stacked",
     "delta_diff",
@@ -62,6 +66,7 @@ _KERNELS = {
     "page_copy": page_copy,
     "page_copy_stacked": page_copy_stacked,
     "paged_attention": paged_attention,
+    "moe_decode": moe_decode,
 }
 
 

@@ -42,6 +42,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..dist.sharding import constrain, current_act_ctx
+from ..kernels.moe_decode import moe_decode
 
 Params = Dict[str, Any]
 
@@ -345,10 +346,8 @@ class MoESpec:
         return self.held if self.held is not None else (0, self.n_experts)
 
     def capacity(self, tokens_per_group: int) -> int:
-        if self.dropless:
-            # the top-k ids of a token are distinct: an expert meets each
-            # token of the group at most once
-            return tokens_per_group
+        """Slots per expert and group of a capacity-bounded layer (a
+        dropless layer has none: ``moe_apply`` never routes it to slots)."""
         c = int(math.ceil(tokens_per_group * self.top_k / self.n_experts * self.capacity_factor))
         return max(8, -(-c // 8) * 8)  # round up to 8 for tile alignment
 
@@ -376,16 +375,19 @@ def _one_hot(ids: torch.Tensor, n: int) -> torch.Tensor:
     return out.scatter_(-1, ids.long().unsqueeze(-1), 1)
 
 
-def _moe_gates(params: Params, spec: MoESpec, x: torch.Tensor):
+def _moe_gates(params: Params, spec: MoESpec, x: torch.Tensor, aux: bool = True):
     """The router's softmax over all ``n_experts`` and its top k: gate
     values and expert ids (B, T, K), renormalized unless
-    ``spec.renormalize`` is False, and the per-row aux loss (B,)."""
+    ``spec.renormalize`` is False, and the per-row aux loss (B,), None
+    where ``aux`` is False."""
     E, K = spec.n_experts, spec.top_k
     logits = x.float() @ params["router"]                          # (B,T,E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_ids = torch.topk(probs, K, dim=-1)           # (B,T,K)
     if spec.renormalize:
         gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+    if not aux:
+        return gate_vals, expert_ids, None
     # Switch-style load-balance aux
     density = _one_hot(expert_ids[..., 0], E).float().mean(dim=1)
     aux = (density * probs.mean(dim=1)).sum(dim=-1) * E            # (B,)
@@ -490,18 +492,41 @@ def _moe_apply_gather(params: Params, spec: MoESpec, x: torch.Tensor) -> Tuple[t
     return out.to(x.dtype).reshape(B, T, D), aux.mean()
 
 
-def moe_apply(params: Params, spec: MoESpec, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _moe_apply_decode(params: Params, spec: MoESpec, x: torch.Tensor,
+                      ids_out: Optional[torch.Tensor]) -> Tuple[torch.Tensor, None]:
+    """The dropless MoE of a decode step (one token a row): the router's
+    top k, then ``kernels.moe_decode``, which reads only the routed held
+    experts' weights (the kernel on the card, its plain version on the
+    CPU).  ``ids_out`` (B, K) int32, where given, receives the routed ids.
+    No aux loss: nothing trains on a decode step, and its ten small
+    kernels a layer would lengthen every step."""
+    B, _, D = x.shape
+    gate_vals, expert_ids, _ = _moe_gates(params, spec, x, aux=False)
+    ids = expert_ids.reshape(B, spec.top_k).to(torch.int32)
+    if ids_out is not None:
+        ids_out.copy_(ids)
+    out = moe_decode(x.reshape(B, D), ids, gate_vals.reshape(B, spec.top_k), params["w_gate"],
+                     params["w_up"], params["w_down"], held=spec.held_range,
+                     activation=spec.activation)
+    return out.reshape(B, 1, D), None
+
+
+def moe_apply(params: Params, spec: MoESpec, x: torch.Tensor,
+              ids_out: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Top-k MoE, capacity-bounded unless dropless; returns (out (B,S,D),
-    aux_loss ()).
+    aux_loss (), None for a dropless decode step).
 
     Two paths, chosen as the reference chooses (``layers.py:432``):
 
-    * **local**: each batch row is one token group, dispatched into
-      per-expert capacity slots, run through every held expert's FFN
-      (empty slots give exact zeros) and combined with its gate weights;
-      a dropless layer takes one slot per token of the group, and over
-      more than one token a row gathers each expert's tokens instead
-      (:func:`_moe_apply_gather`);
+    * **local**: a capacity-bounded layer takes each batch row as one
+      token group, dispatched into per-expert capacity slots, run through
+      every held expert's FFN (empty slots give exact zeros) and combined
+      with its gate weights.  A dropless layer gathers each expert's
+      tokens over more than one token a row (:func:`_moe_apply_gather`)
+      and runs a decode step's one token a row through the routed experts
+      alone (:func:`_moe_apply_decode`, which writes the routed ids into
+      ``ids_out`` where given);
     * **expert-parallel**, when an activation-sharding context with a mesh
       and a model axis is installed: :func:`_moe_apply_shard_map`, which
       takes every expert and a capacity.
@@ -515,7 +540,9 @@ def moe_apply(params: Params, spec: MoESpec, x: torch.Tensor) -> Tuple[torch.Ten
             raise ValueError("the expert-parallel MoE takes every expert and a capacity")
         return _moe_apply_shard_map(params, spec, x, ctx)
     T = x.shape[1]
-    if spec.dropless and T > 1:
+    if spec.dropless:
+        if T == 1:
+            return _moe_apply_decode(params, spec, x, ids_out)
         return _moe_apply_gather(params, spec, x)
     gate_vals, flat_e, flat_p, keep, aux, C = _moe_route(params, spec, x)
     lo, hi = spec.held_range

@@ -352,7 +352,10 @@ def _apply_sublayer(
     if kind == "mlp":
         return L.glu_mlp(params["body"], h, activation=cfg.activation), None, None
     if kind == "moe":
-        out, aux = L.moe_apply(params["body"], _moe_spec(cfg), h)
+        # a decode program's dropless MoE sublayer has a (B, K) buffer for
+        # the step's routed ids
+        ids_out = cache["ids"] if cache is not None else None
+        out, aux = L.moe_apply(params["body"], _moe_spec(cfg), h, ids_out)
         return out, None, aux
     if kind == "mamba":
         state = (cache["conv"], cache["ssm"]) if cache is not None else None

@@ -44,6 +44,15 @@ batch's states into the program's static buffers, which the model updates
 in place, then rebinds each session's extras to its slice of one clone of
 them: no session holds a view of a static buffer (the next replay
 overwrites those), so a state a fork shares is never written.
+
+A model with dropless MoE layers routes each decode row to its top-k
+experts, and the step reads only those experts' weights
+(``kernels.moe_decode``).  The program keeps each such layer's routed ids
+in a static buffer and returns them after the logits, in the same output
+and so in the same device-to-host copy; ``Engine.step`` counts the
+distinct (layer, held expert) pairs the step read, as its ``engine.step``
+span's ``experts_read`` (beside ``rows``) and the run's
+``moe.experts_read`` counter.
 """
 from __future__ import annotations
 
@@ -88,6 +97,10 @@ class DecodeProgram:
         self.cache: Dict[str, Any] = {"lens": self.staged[B:2 * B]}
         # extras key -> leaf -> static (N, B, ...) state, written in place
         self.states: Dict[str, Dict[str, torch.Tensor]] = {}
+        # each dropless MoE sublayer's routed ids (N, B, K), written in place
+        self.routes: List[torch.Tensor] = []
+        self.held = cfg.experts_held or (0, cfg.n_experts)
+        self.top_k = cfg.top_k
         for i, stage in enumerate(cfg.stages):
             entries: Dict[str, Any] = {}
             for li, layer in enumerate(stage.period):
@@ -102,6 +115,11 @@ class DecodeProgram:
                     elif kind in RECURRENT_KINDS:
                         entries[tag] = self.states[f"stage{i}/{tag}"] = stacked_cache_entry(
                             kind, cfg, stage.n_periods, B, 1, dev)
+                    elif kind == "moe" and cfg.moe_dropless:
+                        ids = torch.zeros((stage.n_periods, B, cfg.top_k), dtype=torch.int32,
+                                          device=dev)
+                        entries[tag] = {"ids": ids}
+                        self.routes.append(ids)
             self.cache[f"stage{i}"] = entries
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.logits: Optional[torch.Tensor] = None      # the graph's output
@@ -111,8 +129,26 @@ class DecodeProgram:
 
     def body(self) -> torch.Tensor:
         """One decode step over the static buffers: the (B, V) float32
-        logits; K/V and the static states are written in place."""
-        return self.engine.model.decode_step(self.tokens, self.cache)[0]
+        logits, followed, where the model has dropless MoE layers, by each
+        layer's routed ids as float32 (exact below 2**24); K/V and the
+        static states are written in place."""
+        logits = self.engine.model.decode_step(self.tokens, self.cache)[0]
+        if not self.routes:
+            return logits
+        ids = [r.transpose(0, 1).reshape(self.batch, -1) for r in self.routes]
+        return torch.cat([logits] + [t.float() for t in ids], dim=1)
+
+    def experts_read(self, routed: np.ndarray) -> int:
+        """The distinct (MoE layer, held expert) pairs of a step's routed
+        ids, ``routed`` (B, layers · K) as ``body`` lays them out: the
+        experts whose weights the step read."""
+        lo, hi = self.held
+        B, K = self.batch, self.top_k
+        ids = routed.astype(np.int64).reshape(B, -1, K).transpose(1, 0, 2).reshape(-1, B * K)
+        ids = np.sort(np.where((ids >= lo) & (ids < hi), ids, -1), axis=1)
+        first = np.concatenate([ids[:, :1] >= 0, (ids[:, 1:] != ids[:, :-1]) & (ids[:, 1:] >= 0)],
+                               axis=1)
+        return int(first.sum())
 
     def stage(self, sessions: Sequence[PagedSession]) -> None:
         """Copy the batch's pending tokens, lengths, page tables and
@@ -238,7 +274,7 @@ class Engine:
         # replay and the logits' copy, which waits for the device.
         with contextlib.ExitStack() as step:
             with self.pool.lock:
-                step.enter_context(trace.span("engine.step"))
+                span = step.enter_context(trace.span("engine.step"))
                 plans: List[Any] = []
                 try:
                     for s in sessions:
@@ -250,7 +286,12 @@ class Engine:
                 prog = self._get_decode(len(sessions))
                 prog.stage(sessions)
                 with trace.span("engine.run"):
-                    logits_np = prog.run().cpu().numpy()
+                    out_np = prog.run().cpu().numpy()
+                logits_np = out_np[:, : self.cfg.vocab_size]
+                if prog.routes:
+                    read = prog.experts_read(out_np[:, self.cfg.vocab_size:])
+                    span.set(experts_read=read, rows=len(sessions))
+                    trace.count("moe.experts_read", read)
                 prog.absorb(sessions)
                 for s in sessions:
                     s.seq_len += 1

@@ -55,7 +55,7 @@ def test_cuda_kernels_match_plain_versions(cuda, N, C, n_dirty, cap):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {
         "delta_diff": 1, "delta_fused": 1, "delta_apply": 1,
-        "page_copy": 0, "page_copy_stacked": 0, "paged_attention": 0,
+        "page_copy": 0, "page_copy_stacked": 0, "paged_attention": 0, "moe_decode": 0,
     }
 
 
@@ -815,3 +815,130 @@ def test_cuda_patched_restore_writes_through_the_pool_rows(cuda):
             s.release()
     finally:
         cr.shutdown()
+
+
+# the decode MoE at both served layers: Qwen3-30B-A3B's (128 experts of
+# (2048, 768), top 8, renormalized) and Jamba2-Mini's (16 of (4096, 14336),
+# top 2 as the softmax gave them, experts 0-7 held); (E, K, d, f, held, renormalize)
+MOE_SHAPES = [(128, 8, 2048, 768, None, True), (16, 2, 4096, 14336, (0, 8), False)]
+
+
+def _moe_case(device, B, E, K, d, f, held, renormalize, shared=False, seed=0,
+              dtype=torch.bfloat16):
+    """Experts drawn in ``dtype``, rows x (B, d) and their top-k routing;
+    ``shared`` routes every row to the first row's experts."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    lo, hi = held or (0, E)
+
+    def w(shape, fan):
+        return torch.empty(shape, dtype=dtype, device=device).normal_(0.0, fan ** -0.5,
+                                                                      generator=gen)
+
+    wg, wu, wd = w((hi - lo, d, f), d), w((hi - lo, d, f), d), w((hi - lo, f, d), f)
+    x = torch.randn((B, d), generator=gen, device=device).to(dtype)
+    logits = torch.randn((B, E), generator=gen, device=device)
+    if shared:
+        logits = logits[:1].expand(B, E)
+    gates, ids = torch.topk(torch.softmax(logits, -1), K, dim=-1)
+    if renormalize:
+        gates = gates / gates.sum(-1, keepdim=True)
+    return x, ids.to(torch.int32).contiguous(), gates.contiguous(), wg, wu, wd, (lo, hi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("B", [1, 2, 3, 4])
+@pytest.mark.parametrize("E,K,d,f,held,renormalize", MOE_SHAPES)
+def test_cuda_moe_decode_matches_plain_version(cuda, B, E, K, d, f, held, renormalize, shared):
+    """The decode MoE kernel against its plain version on the card in
+    bfloat16 at both models' layers, distinct and shared routing, within
+    bf16's 2e-2; three launches a call."""
+    from repro_torch.kernels.moe_decode import moe_decode_ref
+
+    x, ids, gates, wg, wu, wd, lo_hi = _moe_case(cuda, B, E, K, d, f, held, renormalize,
+                                                 shared=shared, seed=B)
+    ops.reset_launch_counts()
+    got = ops.moe_decode(x, ids, gates, wg, wu, wd, held=lo_hi)
+    want = moe_decode_ref(x, ids, gates, wg, wu, wd, lo_hi)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    assert ops.launch_counts()["moe_decode"] == 3
+    assert torch.equal(got, ops.moe_decode(x, ids, gates, wg, wu, wd, held=lo_hi))  # fixed order
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,E,K,d,f", [(12, 16, 4, 64, 96), (64, 8, 4, 128, 2056)])
+def test_cuda_moe_decode_edges(cuda, dtype, B, E, K, d, f):
+    """More routed rows to one expert than a block keeps sums for (chunks
+    of 8), a ragged last tile of f and of d, float32, several splits of f,
+    and held shares with ids outside them, against the plain version."""
+    from repro_torch.kernels.moe_decode import moe_decode_ref
+
+    for held in ((0, E), (E // 2, E)):
+        x, ids, gates, wg, wu, wd, lo_hi = _moe_case(cuda, B, E, K, d, f, held, True, seed=E,
+                                                     dtype=dtype)
+        got = ops.moe_decode(x, ids, gates, wg, wu, wd, held=lo_hi)
+        want = moe_decode_ref(x, ids, gates, wg, wu, wd, lo_hi)
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _qwen3_moe_shaped_config():
+    """A tiny model of Qwen3-30B-A3B's block: two layers of qk-norm
+    attention (8 query heads over one KV head, head_dim 128, which the
+    card's ``paged_attention`` takes) and a dropless MoE of 128 experts,
+    top 8 renormalized."""
+    from repro_torch.configs import ModelConfig, Stage
+
+    return ModelConfig(name="qwen3-30b-a3b-shaped", family="moe",
+                       stages=(Stage(period=(("attn", "moe"),), n_periods=2),), d_model=256,
+                       n_heads=8, n_kv_heads=1, head_dim=128, d_ff=64, vocab_size=256,
+                       qk_norm=True, rope_theta=1e6, n_experts=128, top_k=8, moe_d_ff=64,
+                       moe_renormalize=True, moe_dropless=True, tie_embeddings=False,
+                       dtype="float32", param_dtype="float32")
+
+
+@pytest.mark.gpu
+def test_cuda_qwen3_moe_graphed_decode_matches_cpu(cuda):
+    """The graphed decode of a Qwen3-30B-A3B-shaped model (the MoE through
+    the decode kernel inside the CUDA graph) against the eager decode on
+    the CPU (the plain version): logits within 2e-2, tokens equal, three
+    kernel launches per MoE layer and step, the routed experts counted."""
+    from repro_torch import trace
+    from repro_torch.models import Model
+    from repro_torch.serve import Engine, PagePool
+
+    cfg = _qwen3_moe_shaped_config()
+    cpu_model = Model(cfg, device="cpu")
+    cpu_model.init(torch.Generator().manual_seed(0))
+
+    def to_cuda(t):
+        return {k: to_cuda(v) for k, v in t.items()} if isinstance(t, dict) else t.to(cuda)
+
+    cuda_model = Model(cfg, device=cuda, params=to_cuda(cpu_model.params))
+    runs = []
+    for m, d in ((cpu_model, "cpu"), (cuda_model, cuda)):
+        eng = Engine(m, PagePool(cfg, num_pages=32, page_size=16, max_pages_per_session=8, device=d))
+        trunk = eng.new_session(list(range(3, 24)))
+        kid = trunk.fork()
+        kid.tokens[-1] = 7
+        ops.reset_launch_counts()
+        run = trace.new_run()
+        with trace.scope(run):
+            toks, logits = [], []
+            for _ in range(4):
+                toks.append(eng.step([trunk, kid]))
+                logits.append(np.stack([trunk.extras["last_logits"], kid.extras["last_logits"]]))
+        read = [s.attr["experts_read"] for s in trace.snapshot(run)["spans"]
+                if s.name == "engine.step"]
+        runs.append((toks, logits, read))
+        if d != "cpu":
+            torch.cuda.synchronize()
+            assert eng.graphs and eng._get_decode(2).replays == 3
+            assert ops.launch_counts()["moe_decode"] == 3 * 2 * 4
+    (cpu_toks, cpu_logits, cpu_read), (gpu_toks, gpu_logits, gpu_read) = runs
+    assert gpu_toks == cpu_toks and gpu_read == cpu_read
+    assert all(8 <= n <= 2 * 2 * 8 for n in gpu_read)
+    for a, b in zip(gpu_logits, cpu_logits):
+        np.testing.assert_allclose(a, b, atol=2e-2, rtol=2e-2)

@@ -187,7 +187,7 @@ def test_cpu_tensors_never_launch_kernels():
     tops.delta_apply(old.clone(), data, idx)
     assert tops.launch_counts() == {
         "delta_diff": 0, "delta_fused": 0, "delta_apply": 0,
-        "page_copy": 0, "page_copy_stacked": 0, "paged_attention": 0,
+        "page_copy": 0, "page_copy_stacked": 0, "paged_attention": 0, "moe_decode": 0,
     }
 
 

@@ -154,10 +154,13 @@ def test_cpu_tensors_never_launch_the_serving_kernels():
     q = torch.zeros((1, 2, 2, 64))
     ops.paged_attention(q, pool[0], pool[1], torch.zeros((1, 3), dtype=torch.int32),
                         torch.tensor([5], dtype=torch.int32))
+    w = torch.zeros((4, 8, 16))
+    ops.moe_decode(torch.zeros((2, 8)), torch.zeros((2, 2), dtype=torch.int32),
+                   torch.zeros((2, 2)), w, w, w.transpose(1, 2).contiguous(), held=(0, 4))
     assert all(n == 0 for n in ops.launch_counts().values())
     assert set(ops.launch_counts()) == {
         "delta_diff", "delta_fused", "delta_apply", "page_copy", "page_copy_stacked",
-        "paged_attention",
+        "paged_attention", "moe_decode",
     }
 
 
